@@ -1,0 +1,496 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+from the repository root, on a machine with one H100.  Phases, each fatal
+on failure (nothing is caught):
+
+1. device   fail unless ``torch.cuda.is_available()``; print the card, the
+            device count and ``nvidia-smi``'s name and power limit.  TF32 is
+            off everywhere: ``torch.backends.cuda.matmul.allow_tf32 = False``
+            and ``torch.backends.cudnn.allow_tf32 = False``.
+2. build    ``nvcc`` builds ``src/repro_torch/csrc/*.cu`` for sm_90a into
+            ``build/`` (one process per source, started together); print the
+            ``-Xptxas -v`` register / shared-memory lines and the seconds.
+3. kernels  at the main path's shapes, each kernel against its plain PyTorch
+            version on the card, normwise: max|kernel - plain| <= 1e-4 *
+            max|plain| (fp32 sums over K <= 8192).  factor_update is held to
+            1e-4 * max|alpha * XᵀX| instead, at beta = 0 (the first step) and
+            at beta = 0.95, so that beta * C cannot hide an error in the
+            product.  Each is timed beside its plain version and one library
+            call the port never calls, two ways: device time, replaying a
+            CUDA graph of the launches between CUDA events (``ms``); and
+            eager, CUDA events around back-to-back calls, where the host's
+            issue rate shows for short launches (``eager_ms``).
+4. agree    the reduced autoencoder (64-32-16-8 mirrored, N = 256) for 6
+            K-FAC steps on the card and on the CPU (plain versions), same
+            weights and uniforms: losses within rtol 1e-3.
+5. main     ``Trainer.fit`` of blkdiag K-FAC (ns inverses, lambda_init = 3,
+            T3 = 5, eta = 1e-5, T1 = 5, T2 = 20) on the full-width
+            784-1000-500-250-30 mirrored autoencoder, N = 8192 full batch,
+            25 steps: warmup refreshes, T3 refreshes, lambda steps and one
+            gamma sweep.  Launch counters are zeroed just before and read just
+            after; every kernel must have launched, with the counts the
+            schedule implies, and the loss must be finite and falling.
+6. profile  the main path twice more: per-stage host times (synchronized),
+            then device time by kernel under ``torch.profiler``.
+7. summary  a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+            ``{"ok": true, "device": {...}}``.
+
+Bounds are the larger of fp32 operations over 67 TFLOP/s and bytes over
+3.35 TB/s (H100 SXM data sheet, at a 700 W power limit).  factor_update's
+counts N·d(d+1) operations per side: XᵀX is symmetric, so only its
+d(d+1)/2 distinct entries need a 2N-operation sum each.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+FP32_FLOPS = 67e12         # H100 SXM fp32, no tensor cores
+HBM_BYTES = 3.35e12        # H100 SXM HBM3
+N_ROWS = 8192
+TOL = 1e-4                 # normwise, against max|plain|
+
+
+def smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else (
+        f"nvidia-smi failed: {out.stderr.strip()}")
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def eager_ms(fn, reps: int = 10) -> float:
+    """CUDA events around ``reps`` back-to-back calls of ``fn`` after one
+    warmup: for short launches this is the host's issue rate (allocations,
+    ctypes calls, Python), not the device's time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream() -> torch.cuda.Stream:
+    # One stream for every warmup and capture: cuBLAS keeps a workspace per
+    # stream for the life of the process, which the main path's peak
+    # memory would otherwise count once per stream.
+    return torch.cuda.Stream()
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device time of ``fn``: its launches are captured once into a CUDA
+    graph, which is replayed ``reps`` times between CUDA events, so no host
+    work lies between the launches."""
+    side = _capture_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def timings(kernel, plain, library, reps: int = 10) -> dict:
+    """Device and eager times of the kernel, its plain version and the
+    library call, each over the same work."""
+    fns = {"ms": kernel, "plain_ms": plain, "library_ms": library}
+    out = {key: graph_ms(fn, reps) for key, fn in fns.items()}
+    out["eager_ms"] = {key: eager_ms(fn, reps) for key, fn in fns.items()}
+    return out
+
+
+def compare(name, got, want, errs, scale=None):
+    """max|got - want| <= TOL * scale, with scale max|want| by default."""
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item() if scale is None else scale
+    ok = math.isfinite(err) and err <= TOL * scale
+    print(f"  {name:48s} max|err| {err:.3e}  scale {scale:.3e}  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version ({err:.3e} > {TOL} * {scale:.3e})")
+    errs.append(err)
+
+
+def profile_main_path(mlp, params, data, cfg, steps) -> None:
+    """Where the time goes: the main path twice more (after its launch
+    counts were read) — once with each pipeline stage timed on the host
+    clock between synchronizes, once under ``torch.profiler`` for the device
+    time by kernel and the device busy share."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optimizers.kfac import Stage, kfac
+    from repro_torch.training.trainer import Trainer
+
+    def fit(opt):
+        trainer = Trainer(mlp, opt, TrainConfig(steps=steps, seed=0,
+                                                log_every=10 ** 9),
+                          device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(params, data, steps=steps, log=lambda *_: None)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    opt = kfac(mlp, cfg, family="bernoulli", device="cuda")
+    pipe = opt.update.__self__
+    stage_ms = collections.defaultdict(list)
+
+    def timed(stage):
+        def run(ctx):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stage.run(ctx)
+            torch.cuda.synchronize()
+            stage_ms[stage.name].append((time.perf_counter() - t0) * 1e3)
+        return Stage(stage.name, run)
+
+    pipe.stages = [timed(st) for st in pipe.stages]
+    wall_ms = fit(opt)
+    print(f"[profile] stages, {steps} steps in {wall_ms:.1f} ms (host clock, "
+          f"a synchronize around every stage)")
+    for name, v in stage_ms.items():
+        srt = sorted(v)
+        print(f"  stage {name:44s} total {sum(v):9.3f} ms  median "
+              f"{srt[len(srt) // 2]:8.3f}  max {srt[-1]:8.3f}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms = fit(kfac(mlp, cfg, family="bernoulli", device="cuda"))
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=dev, reverse=True)
+    busy_ms = sum(dev(e) for e in kernels) / 1e3
+    print(f"[profile] torch.profiler, {steps} steps in {wall_ms:.1f} ms: "
+          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+    for e in kernels[:12]:
+        print(f"  {dev(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+
+
+def main() -> None:
+    # ---- 1. device ---------------------------------------------------
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False — this "
+                 "script runs the port on the card and has no CPU fallback")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    card = smi()
+    print(f"[device] {kind} x{count}; nvidia-smi: {card}; torch "
+          f"{torch.__version__} cuda {torch.version.cuda}; tf32 off")
+
+    from repro_torch import kernels as K
+    from repro_torch.configs.autoencoder import CONFIG, reduced
+    from repro_torch.configs.base import KFACConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticAutoencoderData
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.factor_update import (factor_update,
+                                                   factor_update_ref)
+    from repro_torch.kernels.matmul import matmul, matmul_ref
+    from repro_torch.kernels.ns_step import (ns_inverse, ns_inverse_ref,
+                                             ns_step, ns_step_ref)
+    from repro_torch.kernels.precond import precondition, precondition_ref
+    from repro_torch.models.mlp import MLP, autoencoder_dims
+    from repro_torch.optimizers.kfac import kfac
+    from repro_torch.training.trainer import Trainer
+
+    # ---- 2. build ----------------------------------------------------
+    lib = _build.load()
+    print(f"[build] {lib.path.relative_to(ROOT)} in {lib.build_seconds:.1f} s"
+          f"{' (loaded an existing build)' if not lib.log else ''}")
+    for line in lib.log.splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            print(f"  {line.strip()}")
+
+    # ---- 3. kernels at the main path's shapes ------------------------
+    dims = autoencoder_dims(CONFIG)
+    layers = [(dims[i] + 1, dims[i + 1]) for i in range(len(dims) - 1)]
+    sides = [d for ag in layers for d in ag]            # 16 factor sides
+    g = torch.Generator(device=dev).manual_seed(0)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev)
+
+    def spd(d, n=N_ROWS, damp=0.1):
+        x = torch.tanh(randn(n, d))
+        return x.T @ x / n + damp * torch.eye(d, device=dev)
+
+    rows = {}
+    print(f"[kernels] tolerance max|err| <= {TOL:g} * scale: max|ref|, or "
+          f"max|alpha * XᵀX| for factor_update")
+
+    # factor_update: X (8192, d), alpha/beta as device scalars; beta = 0 is
+    # the main path's first step.  The tolerance scales with the product
+    # alpha * XᵀX alone, which beta * C would otherwise dwarf.
+    errs = []
+    for n, d in [(N_ROWS, d) for d in (785, 1001, 1000, 784, 501, 251, 31,
+                                       30)] + [(1000, 30)]:
+        x, c = torch.tanh(randn(n, d)), spd(d, 512)
+        for e in (0.0, 0.95):
+            eps = torch.tensor(e, device=dev)
+            a, b = (1 - eps) / n, eps
+            prod = factor_update_ref(x, c, alpha=a, beta=0.0)
+            compare(f"factor_update X({n},{d}) beta={e}",
+                    factor_update(x, c, alpha=a, beta=b),
+                    factor_update_ref(x, c, alpha=a, beta=b), errs,
+                    scale=prod.abs().max().item())
+    xs = [torch.tanh(randn(N_ROWS, d)) for d in sides]
+    cs = [spd(d, 512) for d in sides]
+    eps = torch.tensor(0.95, device=dev)
+    fu = lambda f: [f(x, c, alpha=(1 - eps) / N_ROWS, beta=eps)
+                    for x, c in zip(xs, cs)]
+    # XᵀX is symmetric, so the function needs only its d(d+1)/2 distinct
+    # entries, 2N operations each; the kernel computes all d².
+    rows["factor_update"] = dict(
+        source="src/repro_torch/csrc/factor_update.cu",
+        replaces="src/repro/kernels/factor_update.py:41",
+        unit=f"all 16 factor sides of one step, X ({N_ROWS}, d)",
+        max_abs_err=max(errs),
+        **timings(lambda: fu(factor_update), lambda: fu(factor_update_ref),
+                  lambda: [torch.addmm(c, x.T, x, beta=0.95,
+                                       alpha=0.05 / N_ROWS)
+                           for x, c in zip(xs, cs)]),
+        bound=bound_ms(float(N_ROWS) * sum(d * (d + 1) for d in sides),
+                       4.0 * sum(N_ROWS * d + 2 * d * d for d in sides)),
+        full_product_bound_ms=bound_ms(
+            2.0 * N_ROWS * sum(d * d for d in sides), 0.0)[0])
+    del xs, cs
+
+    # precondition: every (a, g) pair of the 8 layers
+    errs = []
+    ops = [(spd(a, 512), randn(a, gd), spd(gd, 512)) for a, gd in layers]
+    for (a, gd), (ai, v, gi) in zip(layers, ops):
+        compare(f"precondition a={a} g={gd}", precondition(ai, v, gi),
+                precondition_ref(ai, v, gi), errs)
+    pc = lambda f: [f(*o) for o in ops]
+    rows["precondition"] = dict(
+        source="src/repro_torch/kernels/precond.py",
+        replaces="src/repro/kernels/precond.py:12",
+        unit="all 8 layers of one step (two matmul launches each)",
+        max_abs_err=max(errs),
+        **timings(lambda: pc(precondition), lambda: pc(precondition_ref),
+                  lambda: [torch.linalg.multi_dot(list(o)) for o in ops]),
+        bound=bound_ms(sum(2.0 * a * gd * (a + gd) for a, gd in layers),
+                       4.0 * sum(a * a + 2 * a * gd + gd * gd
+                                 for a, gd in layers)))
+    del ops
+
+    # matmul: the products above go through it; direct checks at the
+    # sweep's batched shape and with alpha/beta as device scalars
+    errs = []
+    m3 = torch.stack([spd(1001, 512, dmp) for dmp in (0.1, 0.2, 0.05)])
+    x3 = torch.stack([torch.eye(1001, device=dev) / 3.0] * 3) + 1e-3 * randn(
+        3, 1001, 1001)
+    compare("matmul (3,1001,1001)@(3,1001,1001)", matmul(m3, x3),
+            matmul_ref(m3, x3), errs)
+    compare("matmul epilogue -X@Z + 2X, batched x3",
+            matmul(x3, m3, x3, alpha=-1.0, beta=2.0),
+            matmul_ref(x3, m3, x3, alpha=-1.0, beta=2.0), errs)
+    a31, b31, c31 = randn(31, 31), randn(31, 30), randn(31, 30)
+    al, be = torch.tensor(0.3, device=dev), torch.tensor(-1.5, device=dev)
+    compare("matmul (31,31)@(31,30), alpha/beta on device",
+            matmul(a31, b31, c31, alpha=al, beta=be),
+            matmul_ref(a31, b31, c31, alpha=al, beta=be), errs)
+    v1000 = randn(1001, 1000)
+    compare("matmul (1001,1001)@(1001,1000)", matmul(m3[0], v1000),
+            matmul_ref(m3[0], v1000), errs)
+    rows["matmul"] = dict(
+        source="src/repro_torch/csrc/matmul.cu",
+        replaces="src/repro/kernels/matmul.py:42",
+        unit="one batched launch (3,1001,1001)@(3,1001,1001), the gamma "
+             "sweep's Z = M X for the widest factor",
+        max_abs_err=max(errs),
+        **timings(lambda: matmul(m3, x3), lambda: matmul_ref(m3, x3),
+                  lambda: torch.bmm(m3, x3)),
+        bound=bound_ms(2.0 * 3 * 1001 ** 3, 4.0 * 3 * 3 * 1001 ** 2))
+
+    # ns_step / ns_inverse: d in {1001, 785, 31}, and batched x3
+    errs = []
+    for d in (1001, 785, 31):
+        m = spd(d)
+        x0 = torch.eye(d, device=dev) / m.abs().sum(-1).max()
+        compare(f"ns_step d={d}", ns_step(m, x0), ns_step_ref(m, x0), errs)
+        compare(f"ns_inverse d={d} (12 iterations)", ns_inverse(m, 12),
+                ns_inverse_ref(m, 12), errs)
+    compare("ns_inverse (3,1001,1001) (12 iterations)", ns_inverse(m3, 12),
+            ns_inverse_ref(m3, 12), errs)
+    del m3, x3
+    ms_ = [spd(d) for d in sides]
+    x0s = [torch.eye(d, device=dev) / m.abs().sum(-1).max()
+           for d, m in zip(sides, ms_)]
+
+    def refresh(step_fn):
+        for m, x in zip(ms_, x0s):
+            for _ in range(12):
+                x = step_fn(m, x)
+
+    cube = sum(d ** 3 for d in sides)
+    rows["ns_step"] = dict(
+        source="src/repro_torch/kernels/ns_step.py",
+        replaces="src/repro/kernels/ns_step.py:17",
+        unit="one full Newton-Schulz refresh: 16 factors x 12 steps",
+        max_abs_err=max(errs),
+        **timings(lambda: refresh(ns_step), lambda: refresh(ns_step_ref),
+                  lambda: refresh(lambda m, x: torch.addmm(
+                      x, x, torch.mm(m, x), beta=2.0, alpha=-1.0)), reps=3),
+        bound=bound_ms(4.0 * 12 * cube, 4.0 * sum(2 * d * d for d in sides)))
+    del ms_, x0s
+    print("  device time (CUDA graph replay); eager (back-to-back calls) in "
+          "brackets")
+    for name, r in rows.items():
+        e = r["eager_ms"]
+        print(f"  {name:14s} {r['unit']}: kernel {r['ms']:.4f} "
+              f"[{e['ms']:.4f}] ms, plain {r['plain_ms']:.4f} "
+              f"[{e['plain_ms']:.4f}] ms, library {r['library_ms']:.4f} "
+              f"[{e['library_ms']:.4f}] ms, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})")
+    print(f"  factor_update bound of the full (d, d) product, as the kernel "
+          f"computes it: {rows['factor_update']['full_product_bound_ms']:.4f}"
+          f" ms")
+
+    # ---- 4. agreement with the plain path on a small input -----------
+    small = autoencoder_dims(reduced())
+    cfg = KFACConfig(inverse_method="ns", lambda_init=3.0, t3=5, eta=1e-5)
+    hist = {}
+    for where in ("cuda", "cpu"):
+        mlp = MLP(small, device=where)
+        params = mlp.init_params(torch.Generator().manual_seed(0))
+        data = SyntheticAutoencoderData(small[0], 8, 256, seed=7,
+                                        device=where)
+        noise = lambda step, shape, where=where: torch.rand(
+            shape, generator=torch.Generator().manual_seed(step)).to(where)
+        tr = Trainer(mlp, kfac(mlp, cfg, family="bernoulli", device=where),
+                     TrainConfig(seed=0, log_every=10 ** 9), noise=noise,
+                     device=where)
+        hist[where] = [h["loss"] for h in tr.fit(
+            params, data, steps=6, log=lambda *_: None)["history"]]
+    print(f"[agree] reduced autoencoder losses cuda {hist['cuda']}")
+    print(f"        plain versions on the cpu    {hist['cpu']}")
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        if not abs(a - b) <= 1e-3 * abs(b):
+            raise AssertionError(f"cuda path {a} vs cpu path {b}")
+
+    # ---- 5. the main path --------------------------------------------
+    steps = 25
+    mlp = MLP(dims, device="cuda")
+    params = mlp.init_params(torch.Generator().manual_seed(0))
+    data = SyntheticAutoencoderData(dims[0], 8, N_ROWS, seed=7,
+                                    device="cuda")
+    cfg = KFACConfig(inv_mode="blkdiag", inverse_method="ns",
+                     lambda_init=3.0, t3=5, eta=1e-5)
+    opt = kfac(mlp, cfg, family="bernoulli", device="cuda")
+    step_ms = []
+
+    def timed_update(*args, _update=opt.update):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _update(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer = Trainer(mlp, dataclasses.replace(opt, update=timed_update),
+                      TrainConfig(steps=steps, seed=0, log_every=5),
+                      device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    K.reset_launches()
+    out = trainer.fit(params, data, steps=steps,
+                      log=lambda msg: print(f"  {msg}"))
+    torch.cuda.synchronize()
+    launches = K.launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in out["history"]]
+    print(f"[main] full width {dims}, N={N_ROWS}, {steps} steps")
+    print(f"  per-step ms: {[round(t, 3) for t in step_ms]}")
+    srt = sorted(step_ms)
+    print(f"  step ms: median {srt[len(srt) // 2]:.3f}, min {srt[0]:.3f}, "
+          f"max {srt[-1]:.3f}; peak memory {peak / 2 ** 20:.1f} MiB, of "
+          f"which {resident / 2 ** 20:.1f} MiB was allocated before the run")
+    print(f"  losses: first {losses[0]:.4f}, last {losses[-1]:.4f}")
+    print(f"  launches: {launches}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss not finite and falling: {losses}")
+    # schedule: refreshes at steps 0, 1, 2 (warmup), 5, 10, 15 (T3) and the
+    # gamma sweep at 20 (3 candidates batched into the same launches)
+    n_refresh = 7
+    want = {"factor_update": 16 * steps,
+            "precondition": 8 * steps + 2 * 8,
+            "ns_step": n_refresh * 16 * cfg.ns_iters}
+    want["matmul"] = 2 * (want["precondition"] + want["ns_step"])
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+
+    # ---- 6. where the time goes --------------------------------------
+    profile_main_path(mlp, params, data, cfg, steps)
+
+    # ---- 7. summary --------------------------------------------------
+    kernels = []
+    for name in ("matmul", "factor_update", "precondition", "ns_step"):
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": r["source"],
+            "replaces": r["replaces"], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "eager_ms": r["eager_ms"], "unit": r["unit"]})
+    print(json.dumps({"main": {"steps": steps, "n_rows": N_ROWS,
+                               "step_ms": step_ms,
+                               "step_ms_median": srt[len(srt) // 2],
+                               "peak_mem_bytes": peak,
+                               "resident_bytes_before": resident,
+                               "losses": losses}}))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}))
+
+
+if __name__ == "__main__":
+    main()

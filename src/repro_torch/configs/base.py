@@ -1,0 +1,77 @@
+"""K-FAC and training configs (mirrors ``repro/configs/base.py``).
+
+Field names and defaults match the reference for every field this port
+reads.  A field that selects a mode the port does not have yet raises
+``NotImplementedError`` when it is set away from its default.
+
+Not carried over: ``kernel_backend`` and ``autotune`` chose between XLA and
+the Pallas kernels and tuned Pallas tiles on a TPU.  The port chooses by
+device instead: on a CUDA tensor the hand-written kernels run, on a CPU
+tensor their plain PyTorch versions.  ``obs`` (telemetry) and the mesh
+fields wait for later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+# field -> the only value this port supports so far
+_PORTED_ONLY = {
+    "inv_mode": "blkdiag",
+    "refresh_mode": "serial",
+    "fused_stats": False,
+    "use_rescale": True,
+    "tau1": 1.0,
+    "tau2": 1.0,
+    "stats_period": 1,
+}
+
+
+@dataclass(frozen=True)
+class KFACConfig:
+    """The paper's optimizer hyper-parameters (section references in brackets)."""
+
+    inv_mode: str = "blkdiag"         # blkdiag                 [S4.2]
+    inverse_method: str = "ns"        # ns | eigh | solve       [S8 / App B]
+    ns_iters: int = 12                # Newton-Schulz iterations (cold start)
+
+    lambda_init: float = 150.0        # LM damping initial value  [S6.5]
+    eta: float = 1e-5                 # l2 regularization coefficient [S13]
+    t1: int = 5                       # lambda adaptation period  [S6.5]
+    t2: int = 20                      # gamma adaptation period   [S6.6]
+    t3: int = 20                      # inverse recompute period  [S8]
+    omega1_base: float = 19.0 / 20.0  # lambda decay base         [S6.5]
+    omega2_base: float = 19.0 / 20.0  # gamma decay base (sqrt)   [S6.6]
+
+    decay_cap: float = 0.95           # epsilon = min(1 - 1/k, cap) [S5]
+    tau1: float = 1.0                 # stats subsample fraction  [S8]
+    tau2: float = 1.0                 # exact-F subsample fraction [S8]
+
+    use_momentum: bool = True         # (alpha, mu) from exact-F 2x2 solve [S7]
+    use_rescale: bool = True          # exact-F alpha rescale     [S6.4]
+
+    fused_stats: bool = False
+    stats_period: int = 1             # update stats every N steps
+    refresh_mode: str = "serial"      # how the T3 inverse refresh is executed
+
+    def __post_init__(self):
+        for name, want in _PORTED_ONLY.items():
+            if getattr(self, name) != want:
+                raise NotImplementedError(
+                    f"KFACConfig.{name}={getattr(self, name)!r} is not ported "
+                    f"yet (only {want!r})")
+        if self.inverse_method not in ("ns", "eigh", "solve"):
+            raise ValueError(f"unknown inverse_method {self.inverse_method!r}")
+
+    def replace(self, **kw) -> "KFACConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop settings.  The port's trainer reads ``seed`` and
+    ``log_every``; the checkpoint fields wait for the checkpoint slice."""
+
+    steps: int = 200
+    seed: int = 0
+    log_every: int = 10

@@ -1,0 +1,49 @@
+"""Carry parameters and optimizer state across from numpy.
+
+The JAX reference's pytrees cross into the port as numpy (in a test:
+``jax.tree.map(np.asarray, tree)``), so the two implementations can start
+from one state and be compared step by step.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.transform import KFACState
+from repro_torch.utils.device import resolve_device
+
+
+def _tensor(x, device):
+    return torch.as_tensor(np.array(x), device=device)
+
+
+def _tree(x, device):
+    if isinstance(x, Mapping):
+        return {k: _tree(v, device) for k, v in x.items()}
+    return None if x is None else _tensor(x, device)
+
+
+def params_from_numpy(params: Dict[str, np.ndarray],
+                      device="cuda") -> Dict[str, torch.Tensor]:
+    """``{"W0": array, ...}`` -> the same dict of float32 tensors."""
+    device = resolve_device(device)
+    return {k: _tensor(v, device).float() for k, v in params.items()}
+
+
+def state_from_numpy(state: Mapping[str, Any], device="cuda") -> KFACState:
+    """A K-FAC state given field by field as numpy (nested dicts for
+    factors / inv / diag / delta0; ``vars(jax_state)`` after
+    ``jax.tree.map(np.asarray, ...)``) -> the port's :class:`KFACState`.
+    ``staleness`` and ``inv_pending`` default to 0 and None."""
+    device = resolve_device(device)
+    fields = {k: _tree(state[k], device)
+              for k in ("step", "k_stats", "lam", "gamma", "factors", "inv",
+                        "diag", "delta0", "m_delta", "loss_prev")}
+    staleness = state.get("staleness")
+    fields["staleness"] = (_tensor(staleness, device) if staleness is not None
+                           else torch.zeros((), dtype=torch.int32,
+                                            device=device))
+    return KFACState(**fields, inv_pending=_tree(state.get("inv_pending"),
+                                                 device))

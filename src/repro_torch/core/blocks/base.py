@@ -1,0 +1,88 @@
+"""Curvature-block abstraction (paper S3–S4): one object per Fisher block.
+
+Mirrors ``repro/core/blocks/base.py``.  The block-diagonal Fisher
+approximation gives every tagged layer its own Kronecker-factored block
+``F_i ≈ Ā_i ⊗ G_i``; a :class:`CurvatureBlock` owns that layer's factor
+layout, statistics, damped inverses and preconditioner apply.  Classes
+self-register against the ``LayerMeta.kind`` values they serve, and
+:func:`build_blocks` resolves one block per tagged layer.
+"""
+from __future__ import annotations
+
+import abc
+from typing import Any, Dict, List, Optional, Type
+
+import torch
+
+from repro_torch.core import inverse as INV
+from repro_torch.core.tags import LayerMeta
+
+
+class CurvatureBlock(abc.ABC):
+    """One layer's Fisher block: layout, statistics, inverse, apply."""
+
+    kinds: tuple = ()   # LayerMeta.kind values this class can serve
+    priority: int = 0   # higher wins when several classes claim a kind
+
+    def __init__(self, meta: LayerMeta, cfg, device):
+        self.meta = meta
+        self.cfg = cfg
+        self.device = device
+
+    @classmethod
+    def handles(cls, meta: LayerMeta) -> bool:
+        """Refine registry dispatch beyond `kind` (e.g. on factor layout)."""
+        return True
+
+    # -- layout ---------------------------------------------------------
+    def init_factors(self) -> Dict[str, Any]:
+        m = self.meta
+        z = lambda d: torch.zeros(d, d, device=self.device)
+        return {"a": z(m.a_dim), "g": z(m.g_dim)}
+
+    def identity_inverse(self) -> Dict[str, Any]:
+        m = self.meta
+        eye = lambda d: torch.eye(d, device=self.device)
+        return {"a_inv": eye(m.a_dim), "g_inv": eye(m.g_dim)}
+
+    # -- statistics (S5) ------------------------------------------------
+    @abc.abstractmethod
+    def update_factors(self, old, rec, gprobe, n: int, eps):
+        """Decayed blend ``C ← ε C + (1−ε) contrib``; ε is a device tensor."""
+
+    # -- inverses (S4.2 / S6.3) -----------------------------------------
+    def damped_inverse(self, fac, gamma, *, method: str = "eigh",
+                       iters: int = 12, prev: Optional[Dict] = None):
+        return INV.damped_pair_inverse(self.meta, fac["a"], fac["g"], gamma,
+                                       method=method, iters=iters, prev=prev)
+
+    # -- preconditioning ------------------------------------------------
+    @abc.abstractmethod
+    def precondition(self, inv, v):
+        """``U = Ā⁻¹ V G⁻¹`` with this block's structure; v shaped like W."""
+
+
+_REGISTRY: Dict[str, List[Type[CurvatureBlock]]] = {}
+
+
+def register(cls: Type[CurvatureBlock]) -> Type[CurvatureBlock]:
+    """Class decorator: file ``cls`` under every kind it serves."""
+    for kind in cls.kinds:
+        lst = _REGISTRY.setdefault(kind, [])
+        lst.append(cls)
+        lst.sort(key=lambda c: -c.priority)
+    return cls
+
+
+def resolve(meta: LayerMeta) -> Type[CurvatureBlock]:
+    for cls in _REGISTRY.get(meta.kind, ()):
+        if cls.handles(meta):
+            return cls
+    raise KeyError(f"no curvature block registered for kind={meta.kind!r} "
+                   f"(layer {meta.name!r}); known kinds: {sorted(_REGISTRY)}")
+
+
+def build_blocks(metas: Dict[str, LayerMeta], cfg,
+                 device) -> Dict[str, CurvatureBlock]:
+    """One resolved block instance per tagged layer."""
+    return {name: resolve(m)(m, cfg, device) for name, m in metas.items()}

@@ -1,0 +1,144 @@
+// Shared-memory tiled fp32 GEMM with a scale/accumulate epilogue, the body of
+// both hand-written kernels of this package:
+//
+//   matmul.cu         O[b] = alpha * A[b] @ B[b] + beta * C[b]
+//   factor_update.cu  O    = alpha * X^T X      + beta * C
+//
+// Design (simple and correct first): a 64 x 64 output tile per block of 256
+// threads, each thread owning a 4 x 4 register patch; K is a loop inside the
+// block in steps of 16, both operand tiles staged through shared memory.
+// Every load and store is masked, so ragged sizes (the homogeneous a_dim =
+// d_in + 1 sides: 785, 1001, 501, 251, 31; d = 30 ...) run without padding.
+// All arithmetic is fp32 FMA on the CUDA cores: no TF32, no tensor cores.
+// wgmma/TMA pipelines are later work.
+//
+// alpha/beta come either by value or, when `ab` is non-null, from a
+// 2-float device buffer read inside the kernel, so values that live on the
+// device (the decay eps of the factor statistics) need no host sync.
+//
+// In the X^T X form, blockIdx.z splits K (the rows of X) into chunks of K
+// rows, the last one cut at k_total, so that a narrow factor (one 64 x 64
+// tile at d = 30) still spreads over the card; factor_update.cu then sums
+// the per-chunk partials in a second, elementwise pass.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace repro_torch {
+
+constexpr int kBM = 64;        // output rows per block
+constexpr int kBN = 64;        // output cols per block
+constexpr int kBK = 16;        // K slice staged per iteration
+constexpr int kTM = 4;         // rows per thread
+constexpr int kTN = 4;         // cols per thread
+constexpr int kThreads = 256;  // (kBM / kTM) * (kBN / kTN)
+
+// XTX == false: A is (M, K) row-major; element (m, k) = A[m * K + k].
+// XTX == true : A is X of shape (K, M) row-major and the kernel reads its
+//               transpose; element (m, k) = X[k * M + m].
+// B is (K, N) row-major in both cases.  Batch b = blockIdx.z offsets every
+// operand by its batch stride (0 broadcasts one operand over the batch);
+// with XTX the batch is the K split and block z sums rows
+// [z * K, min((z + 1) * K, k_total)).
+template <bool XTX>
+__global__ void __launch_bounds__(kThreads)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                const float* __restrict__ C, float* __restrict__ O,
+                int M, int N, int K, int k_total,
+                long long sA, long long sB, long long sC, long long sO,
+                const float* __restrict__ ab, float alpha, float beta) {
+  __shared__ __align__(16) float As[kBK][kBM + 4];  // A tile, k-major
+  __shared__ __align__(16) float Bs[kBK][kBN];
+
+  const long long bz = blockIdx.z;
+  A += bz * sA;
+  B += bz * sB;
+  O += bz * sO;
+  if (C != nullptr) C += bz * sC;
+  if (ab != nullptr) {
+    alpha = ab[0];
+    beta = ab[1];
+  }
+
+  if (XTX) K = min(K, k_total - static_cast<int>(bz) * K);
+
+  const int tid = threadIdx.x;
+  const int tx = tid % (kBN / kTN);
+  const int ty = tid / (kBN / kTN);
+  const int row0 = blockIdx.y * kBM;
+  const int col0 = blockIdx.x * kBN;
+
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+#pragma unroll
+    for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
+      const int idx = tid + r * kThreads;
+      // neighbouring threads read neighbouring addresses in both layouts
+      const int m = XTX ? idx % kBM : idx / kBK;
+      const int k = XTX ? idx / kBM : idx % kBK;
+      const int gm = row0 + m, gk = k0 + k;
+      float v = 0.f;
+      if (gm < M && gk < K)
+        v = XTX ? A[(long long)gk * M + gm] : A[(long long)gm * K + gk];
+      As[k][m] = v;
+    }
+#pragma unroll
+    for (int r = 0; r < (kBK * kBN) / kThreads; ++r) {
+      const int idx = tid + r * kThreads;
+      const int n = idx % kBN, k = idx / kBN;
+      const int gn = col0 + n, gk = k0 + k;
+      Bs[k][n] = (gn < N && gk < K) ? B[(long long)gk * N + gn] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * kTM]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * kTN]);
+      const float a[kTM] = {a4.x, a4.y, a4.z, a4.w};
+      const float b[kTN] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int gm = row0 + ty * kTM + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int gn = col0 + tx * kTN + j;
+      if (gn >= N) continue;
+      const long long o = (long long)gm * N + gn;
+      float v = alpha * acc[i][j];
+      if (C != nullptr) v = fmaf(beta, C[o], v);
+      O[o] = v;
+    }
+  }
+}
+
+// Launch on `stream`; returns cudaGetLastError() as an int (0 = success).
+template <bool XTX>
+inline int launch_gemm_f32(const float* A, const float* B, const float* C,
+                           float* O, int batch, int M, int N, int K,
+                           int k_total, long long sA, long long sB,
+                           long long sC,
+                           long long sO, const float* ab, float alpha,
+                           float beta, void* stream) {
+  if (batch <= 0 || M <= 0 || N <= 0) return 0;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
+  gemm_f32_kernel<XTX><<<grid, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      A, B, C, O, M, N, K, k_total, sA, sB, sC, sO, ab, alpha, beta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace repro_torch

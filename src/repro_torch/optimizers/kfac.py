@@ -1,0 +1,386 @@
+"""K-FAC as a staged pipeline (paper Algorithm 2); mirrors
+``repro/optimizers/kfac.py`` for ``inv_mode="blkdiag"`` and
+``refresh_mode="serial"``.
+
+:class:`KFACEngine` holds the stage functions, each a ``state -> state`` map
+over :class:`~repro_torch.core.transform.KFACState`:
+
+  ``stats_grads``       every step: gradients on the true labels, then the
+                        model-sampled g statistics, then the decayed factor
+                        update (S5) through the ``factor_update`` kernel.
+  ``refresh_inverses``  every T3 steps (and the first 3): damped inverses
+                        (S4.2/S6.3); ``refresh_multi`` the three gamma
+                        candidates of the S6.6 sweep, stacked on a leading
+                        dim instead of JAX's vmap.
+  ``apply_update``      every step: preconditioning (``precondition``
+                        kernel) with the exact-F re-scaling + momentum 2x2
+                        solve (S6.4/S7) and candidate selection by M(delta).
+  ``lambda_step``       every T1 steps: reduction ratio rho + LM rule (S6.5).
+
+:class:`KFACPipeline` schedules them off the step counter, and :func:`kfac`
+wraps the pipeline as an :class:`Optimizer`.  Device scalars (ε, λ, γ, α, μ,
+the chosen candidate) stay on the device; the pipeline reads the step
+counter, and the T1 stage the finiteness of the new parameters, on the
+host, as the reference does.
+
+Random numbers: JAX's stats pass draws its targets from
+``fold_in(rng, 1)``.  Here ``rng`` is a callable ``shape -> uniforms`` that
+already stands for that stream (the trainer builds it from its ``noise``),
+and only the stats pass draws from it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, List, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import KFACConfig
+from repro_torch.core import damping as D
+from repro_torch.core import factors as F
+from repro_torch.core import fisher as FI
+from repro_torch.core.blocks import build_blocks
+from repro_torch.core.transform import KFACState, Optimizer
+from repro_torch.utils import tree as T
+from repro_torch.utils.device import resolve_device
+
+
+def _take(x, idx):
+    """``x[idx]`` along dim 0 for a 0-d device index, without a host read."""
+    return x.index_select(0, idx.reshape(1)).squeeze(0)
+
+
+class KFACEngine:
+    """model must provide: metas, loss(params, probes, batch, rng, mode),
+    make_probes(batch) and logits(params, x)."""
+
+    def __init__(self, model, cfg: KFACConfig, family: str = "categorical",
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.cfg = cfg
+        self.family = family
+        self.metas = model.metas
+        self.tagged = {m.param_path for m in self.metas.values()}
+        self.blocks = build_blocks(self.metas, cfg, self.device)
+
+    def n_tokens(self, batch) -> int:
+        return int(batch["x"].shape[0])
+
+    def _probes(self, batch):
+        return self.model.make_probes(batch)
+
+    def _is_tagged(self, key) -> bool:
+        return (key,) in self.tagged
+
+    def _scalar(self, v, dtype=torch.float32):
+        return torch.tensor(v, dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    def init(self, params, batch) -> KFACState:
+        untagged = [k for k in params if not self._is_tagged(k)]
+        if untagged:
+            raise NotImplementedError(
+                f"untagged parameters {untagged} (the reference's diagonal "
+                "curvature for them) are not ported yet")
+        factors = {name: blk.init_factors()
+                   for name, blk in self.blocks.items()}
+        # the reference keeps an empty placeholder for every tagged param
+        diag = {k: torch.zeros(0, device=self.device) for k in params}
+        cfg = self.cfg
+        return KFACState(
+            step=self._scalar(0, torch.int32),
+            k_stats=self._scalar(0, torch.int32),
+            lam=self._scalar(cfg.lambda_init),
+            gamma=self._scalar(math.sqrt(cfg.lambda_init + cfg.eta)),
+            factors=factors,
+            inv={name: blk.identity_inverse()
+                 for name, blk in self.blocks.items()},
+            diag=diag,
+            delta0=T.tree_map(lambda p: torch.zeros_like(p,
+                                                         dtype=torch.float32),
+                              params),
+            m_delta=self._scalar(-1.0),
+            loss_prev=self._scalar(0.0),
+            staleness=self._scalar(0, torch.int32),
+            inv_pending=None,
+        )
+
+    # ------------------------------------------------------------------
+    # stats + grads: a full-batch gradient pass, plus a model-sampled-target
+    # pass for the factor statistics that differentiates only w.r.t. the
+    # probes (parameters detached), so its backward does no dW products.
+    # ------------------------------------------------------------------
+    def stats_grads(self, state: KFACState, params, batch, rng):
+        # ---- pass 1: gradients on the full batch (plain mode) ----
+        p1 = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        (lt, _), _ = self.model.loss(p1, None, batch, None, mode="plain")
+        grads = dict(zip(p1, torch.autograd.grad(lt, list(p1.values()))))
+        lt = lt.detach()
+
+        # ---- pass 2: statistics with sampled targets ----
+        probes = self._probes(batch)
+        n = self.n_tokens(batch)
+        frozen = {k: v.detach() for k, v in params.items()}
+        (_, ls), aux = self.model.loss(frozen, probes, batch, rng,
+                                       mode="collect")
+        gprobes = dict(zip(probes, torch.autograd.grad(
+            ls, list(probes.values()))))
+        recs = aux["recs"]
+
+        k = state.k_stats + 1
+        eps = F.decay_eps(k, self.cfg.decay_cap)
+        factors = {
+            name: blk.update_factors(state.factors[name], recs[name],
+                                     gprobes[name], n, eps)
+            for name, blk in self.blocks.items()}
+
+        state = state.replace(factors=factors, k_stats=k, loss_prev=lt)
+        return state, grads, {"loss": lt, "loss_sampled": ls.detach()}
+
+    # ------------------------------------------------------------------
+    # inverses
+    # ------------------------------------------------------------------
+    def _inverses_for(self, factors, gamma, prev=None):
+        cfg = self.cfg
+        return {name: blk.damped_inverse(
+                    factors[name], gamma, method=cfg.inverse_method,
+                    iters=cfg.ns_iters,
+                    prev=None if prev is None else prev.get(name))
+                for name, blk in self.blocks.items()}
+
+    def refresh_inverses(self, state: KFACState, hot: bool = False):
+        prev = state.inv if (hot and self.cfg.inverse_method == "ns") else None
+        return state.replace(inv=self._inverses_for(state.factors,
+                                                    state.gamma, prev))
+
+    def refresh_multi(self, state: KFACState):
+        """Inverses for the 3 gamma candidates (S6.6), stacked on a leading
+        dim of 3 (the reference vmaps over the candidates)."""
+        gammas = D.gamma_candidates(state.gamma, self._omega2())
+        return gammas, self._inverses_for(state.factors, gammas)
+
+    def _omega1(self):
+        return float(self.cfg.omega1_base ** self.cfg.t1)
+
+    def _omega2(self):
+        return float(math.sqrt(self.cfg.omega2_base) ** self.cfg.t2)
+
+    # ------------------------------------------------------------------
+    # preconditioning
+    # ------------------------------------------------------------------
+    def _precondition(self, grads_reg, inv):
+        out = {}
+        for name, blk in self.blocks.items():
+            (key,) = blk.meta.param_path
+            out[key] = blk.precondition(inv[name], grads_reg[key])
+        return T.tree_scale(out, -1.0)
+
+    # ------------------------------------------------------------------
+    # update: precondition fused with rescale + momentum + candidate select
+    # ------------------------------------------------------------------
+    def apply_update(self, state: KFACState, params, grads, batch, rng, *,
+                     cand_inv: Optional[List] = None, gammas=None):
+        """cand_inv: list of inverse dicts (candidates); default state.inv.
+        Returns (params', state', metrics)."""
+        cfg = self.cfg
+        invs = cand_inv if cand_inv is not None else [state.inv]
+        nc = len(invs)
+        grads_reg = T.tree_axpy(cfg.eta, T.tree_map(torch.Tensor.float, params),
+                                T.tree_map(torch.Tensor.float, grads))
+
+        deltas = [self._precondition(grads_reg, inv) for inv in invs]
+        use_mom = cfg.use_momentum
+        tangents = deltas + ([state.delta0] if use_mom else [])
+        m = len(tangents)
+
+        lam_eta = state.lam + cfg.eta
+        q = FI.quad_logits(lambda p: self.model.logits(p, batch["x"]),
+                           params, batch, tangents, self.family)
+        dots = torch.stack([torch.stack([T.tree_dot(tangents[i], tangents[j])
+                                         for j in range(m)])
+                            for i in range(m)])
+        q = q + lam_eta * dots
+        b = torch.stack([T.tree_dot(grads_reg, t) for t in tangents])
+
+        if use_mom:
+            # per candidate c, the 2x2 model over (delta_c, delta0)
+            j = m - 1
+            q2 = torch.stack([torch.stack([torch.stack([q[c, c], q[c, j]]),
+                                           torch.stack([q[j, c], q[j, j]])])
+                              for c in range(nc)])
+            q2 = q2 + 1e-20 * torch.eye(2, device=q.device)
+            b2 = torch.stack([torch.stack([b[c], b[j]]) for c in range(nc)])
+            x = -torch.linalg.solve_ex(q2, b2)[0]              # (nc, 2)
+            ms = (0.5 * torch.einsum("ci,cij,cj->c", x, q2, x)
+                  + torch.sum(b2 * x, dim=-1))
+            alphas, mus = x[:, 0], x[:, 1]
+        else:
+            qd = torch.diagonal(q)[:nc]
+            alphas = -b[:nc] / torch.clamp(qd, min=1e-20)
+            mus = torch.zeros_like(alphas)
+            ms = 0.5 * alphas * alphas * qd + alphas * b[:nc]
+        c_star = torch.argmin(ms)
+        alpha = _take(alphas, c_star)
+        mu = _take(mus, c_star)
+        m_delta = _take(ms, c_star)
+
+        # select the winning candidate's delta (and inverses / gamma)
+        if nc == 1:
+            delta_sel, inv_sel, gamma_new = deltas[0], invs[0], state.gamma
+        else:
+            pick = lambda *xs: _take(torch.stack(xs), c_star)
+            delta_sel = T.tree_map(pick, *deltas)
+            inv_sel = T.tree_map(pick, *invs)
+            gamma_new = _take(gammas, c_star)
+
+        delta = T.tree_scale(delta_sel, alpha)
+        if use_mom:
+            delta = T.tree_axpy(mu, state.delta0, delta)
+        new_params = {k: p + delta[k].to(p.dtype) for k, p in params.items()}
+
+        state = state.replace(step=state.step + 1, delta0=delta,
+                              m_delta=m_delta, inv=inv_sel, gamma=gamma_new)
+        metrics = {
+            "alpha": alpha, "mu": mu, "m_delta": m_delta,
+            "gamma": gamma_new, "lam": state.lam,
+            "grad_norm": torch.sqrt(T.tree_sqnorm(grads_reg)),
+            "delta_norm": torch.sqrt(T.tree_sqnorm(delta)),
+        }
+        return new_params, state, metrics
+
+    # ------------------------------------------------------------------
+    # lambda adaptation (S6.5)
+    # ------------------------------------------------------------------
+    def lambda_step(self, state: KFACState, new_params, batch, rng):
+        (l_new, _), _ = self.model.loss(new_params, None, batch, None,
+                                        mode="plain")
+        rho = (l_new - state.loss_prev) / torch.clamp(state.m_delta,
+                                                       max=-1e-20)
+        lam = D.lambda_update(state.lam, rho, self._omega1())
+        return state.replace(lam=lam), rho
+
+
+# ---------------------------------------------------------------------------
+# the pipeline: stages + schedule -> Optimizer(init, update, reject)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StepContext:
+    """Mutable per-step scratch the stages thread their work through."""
+
+    step: int
+    warmup: bool
+    state: KFACState
+    params: Any
+    batch: Any
+    rng: Any
+    grads: Any = None
+    new_params: Any = None
+    candidates: Any = None          # (gammas, stacked inv3) on T2 steps
+    metrics: dict = dataclasses.field(default_factory=dict)
+
+
+class Stage(NamedTuple):
+    name: str
+    run: Callable[[StepContext], None]
+
+
+class KFACPipeline:
+    """Drives one optimizer step as an ordered list of named stages, each
+    with its own schedule predicate read off the step counter."""
+
+    def __init__(self, engine: KFACEngine):
+        self.engine = engine
+        self._start: Optional[int] = None
+        self.stages = [
+            Stage("estimate_stats", self._stage_estimate_stats),
+            Stage("scheduled_inverse_refresh", self._stage_refresh),
+            Stage("precondition+quadratic_model_lr_momentum",
+                  self._stage_quadratic),
+            Stage("adapt_lambda", self._stage_adapt_lambda),
+        ]
+
+    # -- stages --------------------------------------------------------
+    def _stage_estimate_stats(self, ctx: StepContext):
+        if ctx.grads is not None:
+            raise ValueError(
+                "kfac computes its own gradients (the statistics pass "
+                "shares the forward with the gradient pass) — call "
+                "update(None, state, params, batch, rng)")
+        ctx.state, ctx.grads, metrics = self.engine.stats_grads(
+            ctx.state, ctx.params, ctx.batch, ctx.rng)
+        ctx.metrics.update(metrics)
+
+    def _stage_refresh(self, ctx: StepContext):
+        cfg = self.engine.cfg
+        if cfg.t2 > 0 and ctx.step > 0 and ctx.step % cfg.t2 == 0:
+            # gamma sweep (S6.6): stacked candidate inverses; selection
+            # happens inside the quadratic-model stage
+            ctx.candidates = self.engine.refresh_multi(ctx.state)
+        elif ctx.warmup or ctx.step % cfg.t3 == 0:
+            ctx.state = self.engine.refresh_inverses(ctx.state, hot=True)
+
+    def _stage_quadratic(self, ctx: StepContext):
+        eng = self.engine
+        if ctx.candidates is not None:
+            gs, i3 = ctx.candidates
+            cand = [T.tree_map(lambda x, c=c: x[c], i3)
+                    for c in range(gs.shape[0])]
+            ctx.new_params, ctx.state, um = eng.apply_update(
+                ctx.state, ctx.params, ctx.grads, ctx.batch, ctx.rng,
+                cand_inv=cand, gammas=gs)
+        else:
+            ctx.new_params, ctx.state, um = eng.apply_update(
+                ctx.state, ctx.params, ctx.grads, ctx.batch, ctx.rng)
+        ctx.metrics.update(um)
+
+    def _stage_adapt_lambda(self, ctx: StepContext):
+        cfg = self.engine.cfg
+        if cfg.t1 > 0 and (ctx.step + 1) % cfg.t1 == 0:
+            # a non-finite update will be rejected by the trainer: evaluate
+            # rho at the params it will actually keep
+            target = (ctx.new_params if bool(T.tree_isfinite(ctx.new_params))
+                      else ctx.params)
+            ctx.state, rho = self.engine.lambda_step(ctx.state, target,
+                                                     ctx.batch, ctx.rng)
+            ctx.metrics["rho"] = rho
+
+    # -- Optimizer protocol --------------------------------------------
+    def init(self, params, batch) -> KFACState:
+        self._start = None            # new run: re-arm the warmup refreshes
+        return self.engine.init(params, batch)
+
+    def update(self, grads, state: KFACState, params, batch, rng):
+        step = int(state.step)        # schedule off the state, not a loop var
+        if self._start is None:
+            self._start = step
+        ctx = StepContext(step=step, warmup=step - self._start < 3,
+                          state=state, params=params, batch=batch, rng=rng,
+                          grads=grads)
+        for stage in self.stages:
+            stage.run(ctx)
+        return ctx.new_params, ctx.state, ctx.metrics
+
+    def reject(self, state: KFACState) -> KFACState:
+        """Non-finite update was skipped: raise damping, drop momentum."""
+        return state.replace(lam=state.lam * 4.0,
+                             delta0=T.tree_zeros_like(state.delta0))
+
+
+def kfac(model=None, cfg: Optional[KFACConfig] = None,
+         family: str = "categorical", *, engine: Optional[KFACEngine] = None,
+         device="cuda") -> Optimizer:
+    """Build the K-FAC optimizer pipeline as an ``Optimizer``.
+
+        opt = kfac(model, KFACConfig(...), family="bernoulli", device="cuda")
+        state = opt.init(params, batch)
+        new_params, state, metrics = opt.update(None, state, params,
+                                                batch, uniforms)
+    """
+    eng = engine if engine is not None else KFACEngine(
+        model, cfg or KFACConfig(), family, device)
+    pipe = KFACPipeline(eng)
+    return Optimizer(init=pipe.init, update=pipe.update, reject=pipe.reject,
+                     engine=eng, name=f"kfac_{eng.cfg.inv_mode}")

@@ -1,0 +1,53 @@
+"""Dict-of-tensor helpers (the port's counterpart of ``repro/utils/tree.py``).
+
+A "tree" here is a tensor, ``None``, or a dict of trees — the shapes the
+engine handles: parameter dicts ``{"W0": ...}`` and per-block inverse dicts
+``{"layer0": {"a_inv": ..., "g_inv": ...}}``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leafwise over trees of identical structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    return [] if tree is None else [tree]
+
+
+def tree_scale(a, s):
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_axpy(alpha, x, y):
+    """alpha * x + y."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def tree_dot(a, b):
+    """Sum of elementwise products across the whole tree (float32 accum)."""
+    parts = [torch.sum(x.float() * y.float())
+             for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    return torch.stack(parts).sum()
+
+
+def tree_sqnorm(a):
+    return tree_dot(a, a)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_isfinite(a):
+    """0-d bool tensor: every element of every leaf is finite."""
+    return torch.stack([torch.isfinite(x).all() for x in tree_leaves(a)]).all()

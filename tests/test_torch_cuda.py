@@ -1,0 +1,126 @@
+"""The port's CUDA kernels on the card, against their plain versions, and
+three full-width trainer steps.  No JAX: the machine with the card has none.
+
+Every test is marked ``cuda`` and skips, inside its body, when
+``torch.cuda.is_available()`` is false.  On the card (``--noconftest``:
+``tests/conftest.py`` imports JAX):
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+
+Tolerance: max|kernel - plain| <= 1e-4 * max|plain| (fp32 sums over
+K <= 8192 in another order), and 1e-4 * max|alpha * XᵀX| for
+factor_update; TF32 is off.
+"""
+import math
+
+import pytest
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.configs.autoencoder import CONFIG
+from repro_torch.configs.base import KFACConfig, TrainConfig
+from repro_torch.data.pipeline import SyntheticAutoencoderData
+from repro_torch.kernels.factor_update import factor_update, factor_update_ref
+from repro_torch.kernels.matmul import matmul, matmul_ref
+from repro_torch.kernels.ns_step import (ns_inverse, ns_inverse_ref, ns_step,
+                                         ns_step_ref)
+from repro_torch.kernels.precond import precondition, precondition_ref
+from repro_torch.models.mlp import MLP, autoencoder_dims
+from repro_torch.optimizers.kfac import kfac
+from repro_torch.training.trainer import Trainer
+
+pytestmark = pytest.mark.cuda
+
+DIMS = autoencoder_dims(CONFIG)
+LAYERS = [(DIMS[i] + 1, DIMS[i + 1]) for i in range(len(DIMS) - 1)]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _close(got, want, scale=None):
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item() if scale is None else scale
+    assert math.isfinite(err) and err <= 1e-4 * scale, (err, scale)
+
+
+def _spd(g, d, n=512):
+    x = torch.tanh(torch.randn(n, d, generator=g, device="cuda"))
+    return x.T @ x / n + 0.1 * torch.eye(d, device="cuda")
+
+
+@pytest.mark.parametrize("n,d", [(8192, 785), (8192, 1001), (8192, 1000),
+                                 (8192, 784), (8192, 501), (8192, 251),
+                                 (8192, 31), (8192, 30), (1000, 30),
+                                 (777, 251)])
+def test_factor_update_on_card(n, d):
+    """At beta = 0 (the first step) and beta = 0.95, held to the scale of
+    alpha * XᵀX alone, which beta * C would otherwise dwarf."""
+    g = _card()
+    x = torch.tanh(torch.randn(n, d, generator=g, device="cuda"))
+    c = _spd(g, d)
+    for e in (0.0, 0.95):
+        eps = torch.tensor(e, device="cuda")
+        a = (1 - eps) / n
+        before = factor_update.launches
+        got = factor_update(x, c, alpha=a, beta=eps)
+        assert factor_update.launches == before + 1
+        prod = factor_update_ref(x, c, alpha=a, beta=0.0)
+        _close(got, factor_update_ref(x, c, alpha=a, beta=eps),
+               scale=prod.abs().max().item())
+
+
+@pytest.mark.parametrize("a,gd", LAYERS)
+def test_precondition_on_card(a, gd):
+    g = _card()
+    ai, gi = _spd(g, a), _spd(g, gd)
+    v = torch.randn(a, gd, generator=g, device="cuda")
+    _close(precondition(ai, v, gi), precondition_ref(ai, v, gi))
+
+
+def test_matmul_batched_and_device_scalars_on_card():
+    g = _card()
+    a = torch.randn(3, 65, 33, generator=g, device="cuda")
+    b = torch.randn(33, 17, generator=g, device="cuda")
+    c = torch.randn(3, 65, 17, generator=g, device="cuda")
+    al, be = torch.tensor(0.3, device="cuda"), torch.tensor(-2.0, device="cuda")
+    _close(matmul(a, b, c, alpha=al, beta=be),
+           matmul_ref(a, b, c, alpha=al, beta=be))
+    _close(matmul(a, b, c, alpha=-1.0, beta=2.0),
+           matmul_ref(a, b, c, alpha=-1.0, beta=2.0))
+
+
+@pytest.mark.parametrize("d", [1001, 785, 31])
+def test_ns_on_card(d):
+    g = _card()
+    m = _spd(g, d, 8192)
+    x0 = torch.eye(d, device="cuda") / m.abs().sum(-1).max()
+    _close(ns_step(m, x0), ns_step_ref(m, x0))
+    _close(ns_inverse(m, 12), ns_inverse_ref(m, 12))
+    m3 = torch.stack([m, m + 0.1 * torch.eye(d, device="cuda"),
+                      m + 0.2 * torch.eye(d, device="cuda")])
+    _close(ns_inverse(m3, 12), ns_inverse_ref(m3, 12))
+
+
+def test_three_full_width_trainer_steps():
+    _card()
+    mlp = MLP(DIMS, device="cuda")
+    params = mlp.init_params(torch.Generator().manual_seed(0))
+    data = SyntheticAutoencoderData(DIMS[0], 8, 8192, seed=7, device="cuda")
+    opt = kfac(mlp, KFACConfig(inverse_method="ns", lambda_init=3.0, t3=5,
+                               eta=1e-5), family="bernoulli", device="cuda")
+    K.reset_launches()
+    out = Trainer(mlp, opt, TrainConfig(seed=0), device="cuda").fit(
+        params, data, steps=3, log=lambda *_: None)
+    losses = [h["loss"] for h in out["history"]]
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    assert K.launches() == {"factor_update": 48, "precondition": 24,
+                            "ns_step": 3 * 16 * 12,
+                            "matmul": 2 * (24 + 3 * 16 * 12)}
