@@ -13,30 +13,39 @@ on failure (nothing is caught):
 2. build    ``nvcc`` builds ``src/repro_torch/csrc/*.cu`` for sm_90a into
             ``build/`` (one process per source, started together); print the
             ``-Xptxas -v`` register / shared-memory lines and the seconds.
-3. kernels  at the main path's shapes, each kernel against its plain PyTorch
+3. kernels  at the main paths' shapes, each kernel against its plain PyTorch
             version on the card, normwise: max|kernel - plain| <= 1e-4 *
-            max|plain| (fp32 sums over K <= 8192).  factor_update is held to
-            1e-4 * max|alpha * XᵀX| instead, at beta = 0 (the first step) and
-            at beta = 0.95, so that beta * C cannot hide an error in the
-            product.  Each is timed beside its plain version and one library
-            call the port never calls, two ways: device time, replaying a
-            CUDA graph of the launches between CUDA events (``ms``); and
-            eager, CUDA events around back-to-back calls, where the host's
-            issue rate shows for short launches (``eager_ms``).
+            max|plain| (fp32 sums over K <= 8192); the update chain's ΣD² to
+            relative 1e-4.  factor_update is held to 1e-4 * max|alpha * XᵀX|
+            instead, at beta = 0 (the first step) and at beta = 0.95, so
+            that beta * C cannot hide an error in the product.  Each is
+            timed beside its plain version and the library calls the port
+            never calls, two ways: device time, replaying a CUDA graph of
+            the launches between CUDA events (``ms``); and eager, CUDA
+            events around back-to-back calls, where the host's issue rate
+            shows for short launches (``eager_ms``).  Also times
+            ``torch.linalg.eigh`` of the 16 factors (the eigen refresh).
 4. agree    the reduced autoencoder (64-32-16-8 mirrored, N = 256) for 6
             K-FAC steps on the card and on the CPU (plain versions), same
-            weights and uniforms: losses within rtol 1e-3.
-5. main     ``Trainer.fit`` of blkdiag K-FAC (ns inverses, lambda_init = 3,
-            T3 = 5, eta = 1e-5, T1 = 5, T2 = 20) on the full-width
-            784-1000-500-250-30 mirrored autoencoder, N = 8192 full batch,
-            25 steps: warmup refreshes, T3 refreshes, lambda steps and one
-            gamma sweep.  Launch counters are zeroed just before and read just
-            after; every kernel must have launched, with the counts the
-            schedule implies, and the loss must be finite and falling.
-6. profile  the main path twice more: per-stage host times (synchronized),
-            then device time by kernel under ``torch.profiler``.
-7. summary  a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-            ``{"ok": true, "device": {...}}``.
+            weights and uniforms, on each path: losses within rtol 1e-3.
+5. main     ``Trainer.fit`` on the full-width 784-1000-500-250-30 mirrored
+            autoencoder, N = 8192 full batch, 25 steps (warmup refreshes,
+            T3 refreshes, lambda steps and one gamma sweep), on three paths
+            (lambda_init = 3, T3 = 5, eta = 1e-5, T1 = 5, T2 = 20):
+              blkdiag  ns inverses, the exact-F 2x2 quadratic model;
+              eigen    EKFAC: eigh bases, the rotate_rescale apply;
+              fused    ns inverses, use_rescale=False: the update_chain
+                       kernel, fixed lr 0.02, momentum 0.9, KL clip 1e-3.
+            Launch counters are zeroed just before each path and read just
+            after; every kernel of the path must have launched, with the
+            counts its schedule implies, and the loss must be finite and
+            falling.  On the clipped (fused) path the applied clip factor
+            nu of every step must lie in (0, 1] and the applied step's norm
+            must be finite and above 0; both are printed per step.
+6. profile  each path twice more: per-stage host times (synchronized), then
+            device time by kernel under ``torch.profiler``.
+7. summary  the ``{"main": ...}`` and ``{"kernels": [...]}`` lines, the
+            nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Bounds are the larger of fp32 operations over 67 TFLOP/s and bytes over
 3.35 TB/s (H100 SXM data sheet, at a 700 W power limit).  factor_update's
@@ -150,11 +159,11 @@ def compare(name, got, want, errs, scale=None):
     errs.append(err)
 
 
-def profile_main_path(mlp, params, data, cfg, steps) -> None:
-    """Where the time goes: the main path twice more (after its launch
-    counts were read) — once with each pipeline stage timed on the host
-    clock between synchronizes, once under ``torch.profiler`` for the device
-    time by kernel and the device busy share."""
+def profile_path(label, mlp, params, data, cfg, steps) -> dict:
+    """Where the time goes: one path twice more (after its launch counts
+    were read) — once with each pipeline stage timed on the host clock
+    between synchronizes, once under ``torch.profiler`` for the device time
+    by kernel and the device busy share."""
     import collections
 
     from torch.autograd import DeviceType
@@ -189,8 +198,8 @@ def profile_main_path(mlp, params, data, cfg, steps) -> None:
 
     pipe.stages = [timed(st) for st in pipe.stages]
     wall_ms = fit(opt)
-    print(f"[profile] stages, {steps} steps in {wall_ms:.1f} ms (host clock, "
-          f"a synchronize around every stage)")
+    print(f"[profile:{label}] stages, {steps} steps in {wall_ms:.1f} ms "
+          f"(host clock, a synchronize around every stage)")
     for name, v in stage_ms.items():
         srt = sorted(v)
         print(f"  stage {name:44s} total {sum(v):9.3f} ms  median "
@@ -205,13 +214,17 @@ def profile_main_path(mlp, params, data, cfg, steps) -> None:
                       if e.device_type == DeviceType.CUDA),
                      key=dev, reverse=True)
     busy_ms = sum(dev(e) for e in kernels) / 1e3
-    print(f"[profile] torch.profiler, {steps} steps in {wall_ms:.1f} ms: "
-          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+    print(f"[profile:{label}] torch.profiler, {steps} steps in "
+          f"{wall_ms:.1f} ms: device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%)")
     for e in kernels[:12]:
         print(f"  {dev(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "stage_total_ms": {k: sum(v) for k, v in stage_ms.items()}}
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     # ---- 1. device ---------------------------------------------------
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False — this "
@@ -236,6 +249,14 @@ def main() -> None:
     from repro_torch.kernels.ns_step import (ns_inverse, ns_inverse_ref,
                                              ns_step, ns_step_ref)
     from repro_torch.kernels.precond import precondition, precondition_ref
+    from repro_torch.kernels.rotate_rescale import (matmul_rescale,
+                                                    matmul_rescale_ref,
+                                                    rotate_rescale,
+                                                    rotate_rescale_ref)
+    from repro_torch.kernels.update_chain import (axpy_momentum,
+                                                  axpy_momentum_ref,
+                                                  precond_momentum,
+                                                  precond_momentum_ref)
     from repro_torch.models.mlp import MLP, autoencoder_dims
     from repro_torch.optimizers.kfac import kfac
     from repro_torch.training.trainer import Trainer
@@ -245,7 +266,8 @@ def main() -> None:
     print(f"[build] {lib.path.relative_to(ROOT)} in {lib.build_seconds:.1f} s"
           f"{' (loaded an existing build)' if not lib.log else ''}")
     for line in lib.log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        if (line.startswith("==") or "registers" in line or "spill" in line
+                or "entry function" in line):
             print(f"  {line.strip()}")
 
     # ---- 3. kernels at the main path's shapes ------------------------
@@ -379,6 +401,132 @@ def main() -> None:
                       x, x, torch.mm(m, x), beta=2.0, alpha=-1.0)), reps=3),
         bound=bound_ms(4.0 * 12 * cube, 4.0 * sum(2 * d * d for d in sides)))
     del ms_, x0s
+
+    # rotate_rescale / matmul_rescale: every (a, g) pair of the 8 layers,
+    # orthonormal bases from eigh on the card, lam as a device scalar
+    errs, errs_mr = [], []
+    lam = torch.tensor(1e-12, device=dev)
+    eops = []
+    for a, gd in layers:
+        qa = torch.linalg.eigh(spd(a, 512))[1]
+        qg = torch.linalg.eigh(spd(gd, 512))[1]
+        eops.append((qa, randn(a, gd), qg, torch.rand(
+            a, gd, generator=g, device=dev) + 0.05))
+    for (a, gd), (qa, v, qg, sd) in zip(layers, eops):
+        compare(f"rotate_rescale a={a} g={gd}",
+                rotate_rescale(qa, v, qg, sd, lam),
+                rotate_rescale_ref(qa, v, qg, sd, lam), errs)
+        t = qa.T @ v
+        compare(f"matmul_rescale ({a},{gd})@({gd},{gd})",
+                matmul_rescale(t, qg, sd, lam),
+                matmul_rescale_ref(t, qg, sd, lam), errs_mr)
+    qa, v, qg, sd = eops[0]
+    t3 = torch.stack([qa.T @ v] * 3) + 1e-3 * randn(3, *v.shape)
+    s3 = torch.stack([sd, 2 * sd, sd + 1.0])
+    compare(f"matmul_rescale batched x3 {tuple(t3.shape)}",
+            matmul_rescale(t3, qg, s3, lam),
+            matmul_rescale_ref(t3, qg, s3, lam), errs_mr)
+    mids = [(qa.T @ v, qg, sd) for qa, v, qg, sd in eops]
+    rr = lambda f: [f(*o, lam) for o in eops]
+    rows["rotate_rescale"] = dict(
+        source="src/repro_torch/kernels/rotate_rescale.py",
+        replaces="src/repro/kernels/rotate_rescale.py:86",
+        unit="all 8 layers of one step (four launches each)",
+        max_abs_err=max(errs),
+        **timings(lambda: rr(rotate_rescale), lambda: rr(rotate_rescale_ref),
+                  lambda: [torch.mm(torch.mm(qa, torch.mm(torch.mm(
+                      qa.T, v), qg).div_(sd)), qg.T)
+                      for qa, v, qg, sd in eops]),
+        library_calls="mm, mm, div, mm, mm",
+        bound=bound_ms(sum(4.0 * a * gd * (a + gd) + a * gd
+                           for a, gd in layers),
+                       4.0 * sum(a * a + gd * gd + 3 * a * gd
+                                 for a, gd in layers)))
+    mr = lambda f: [f(t, qg, sd, lam) for t, qg, sd in mids]
+    rows["matmul_rescale"] = dict(
+        source="src/repro_torch/csrc/rotate_rescale.cu",
+        replaces="src/repro/kernels/rotate_rescale.py:49",
+        unit="the 8 middle products (T Q_G) / (S + lam) of one step",
+        max_abs_err=max(errs_mr),
+        **timings(lambda: mr(matmul_rescale), lambda: mr(matmul_rescale_ref),
+                  lambda: [torch.mm(t, qg).div_(sd) for t, qg, sd in mids]),
+        library_calls="mm, div",
+        bound=bound_ms(sum(2.0 * a * gd * gd + a * gd for a, gd in layers),
+                       4.0 * sum(3 * a * gd + gd * gd for a, gd in layers)))
+
+    # precond_momentum / axpy_momentum: the 8 layers, alpha/mu on the
+    # device; D normwise, ΣD² to relative 1e-4
+    errs, errs_ax = [], []
+    al, mu = torch.tensor(-0.02, device=dev), torch.tensor(0.9, device=dev)
+    cops = [(spd(a, 512), randn(a, gd), spd(gd, 512), randn(a, gd))
+            for a, gd in layers]
+
+    def compare_sq(name, got, want):
+        rel = abs(got.item() - want.item()) / want.item()
+        print(f"  {name:48s} rel|err| {rel:.3e}  "
+              f"{'ok' if rel <= TOL else 'FAIL'}")
+        if not rel <= TOL:
+            raise AssertionError(f"{name}: ΣD² {got.item()} vs {want.item()}")
+
+    for (a, gd), (ai, v, gi, mom) in zip(layers, cops):
+        d, sq = precond_momentum(ai, v, gi, mom, alpha=al, mu=mu)
+        d_ref, sq_ref = precond_momentum_ref(ai, v, gi, mom, alpha=al, mu=mu)
+        compare(f"precond_momentum a={a} g={gd}", d, d_ref, errs)
+        compare_sq(f"precond_momentum a={a} g={gd} ΣD²", sq, sq_ref)
+        t = v @ gi
+        d, sq = axpy_momentum(ai, t, mom, al, mu)
+        d_ref, sq_ref = axpy_momentum_ref(ai, t, mom, al, mu)
+        compare(f"axpy_momentum a={a} g={gd}", d, d_ref, errs_ax)
+        compare_sq(f"axpy_momentum a={a} g={gd} ΣD²", sq, sq_ref)
+    pm = lambda f: [f(ai, v, gi, mom, alpha=al, mu=mu)
+                    for ai, v, gi, mom in cops]
+
+    def pm_library():
+        for ai, v, gi, mom in cops:
+            d = torch.addmm(mom, ai, torch.mm(v, gi), beta=0.9, alpha=-0.02)
+            torch.sum(d * d)
+
+    rows["precond_momentum"] = dict(
+        source="src/repro_torch/kernels/update_chain.py",
+        replaces="src/repro/kernels/update_chain.py:99",
+        unit="all 8 layers of one step (two launches each)",
+        max_abs_err=max(errs),
+        **timings(lambda: pm(precond_momentum),
+                  lambda: pm(precond_momentum_ref), pm_library),
+        library_calls="mm, addmm, sum(d*d)",
+        bound=bound_ms(sum(2.0 * a * gd * (a + gd) + 4.0 * a * gd
+                           for a, gd in layers),
+                       4.0 * sum(a * a + gd * gd + 3 * a * gd
+                                 for a, gd in layers)))
+    aops = [(ai, v @ gi, mom) for ai, v, gi, mom in cops]
+    ax = lambda f: [f(ai, t, mom, al, mu) for ai, t, mom in aops]
+
+    def ax_library():
+        for ai, t, mom in aops:
+            d = torch.addmm(mom, ai, t, beta=0.9, alpha=-0.02)
+            torch.sum(d * d)
+
+    rows["axpy_momentum"] = dict(
+        source="src/repro_torch/csrc/update_chain.cu",
+        replaces="src/repro/kernels/update_chain.py:53",
+        unit="the 8 second halves alpha (A^-1 T) + mu M, ΣD² of one step",
+        max_abs_err=max(errs_ax),
+        **timings(lambda: ax(axpy_momentum), lambda: ax(axpy_momentum_ref),
+                  ax_library),
+        library_calls="addmm, sum(d*d)",
+        bound=bound_ms(sum(2.0 * a * a * gd + 4.0 * a * gd
+                           for a, gd in layers),
+                       4.0 * sum(a * a + 3 * a * gd for a, gd in layers)))
+    del eops, mids, cops, aops
+
+    # torch.linalg.eigh of the 16 factors: the eigen path's refresh
+    # (the reference calls jnp.linalg.eigh; no kernel replaces it)
+    facs = [spd(d) for d in sides]
+    eigh_ms = eager_ms(lambda: [torch.linalg.eigh(f) for f in facs], reps=3)
+    del facs
+    print(f"  torch.linalg.eigh of the 16 factor sides (one eigen refresh): "
+          f"{eigh_ms:.3f} ms eager")
+
     print("  device time (CUDA graph replay); eager (back-to-back calls) in "
           "brackets")
     for name, r in rows.items():
@@ -393,99 +541,161 @@ def main() -> None:
           f" ms")
 
     # ---- 4. agreement with the plain path on a small input -----------
+    base = dict(lambda_init=3.0, t3=5, eta=1e-5)
+    paths = {
+        "blkdiag": KFACConfig(inv_mode="blkdiag", inverse_method="ns",
+                              **base),
+        "eigen": KFACConfig(inv_mode="eigen", **base),
+        "fused": KFACConfig(inv_mode="blkdiag", inverse_method="ns",
+                            use_rescale=False, fixed_lr=0.02,
+                            fixed_momentum=0.9, kl_clip=1e-3, **base),
+    }
     small = autoencoder_dims(reduced())
-    cfg = KFACConfig(inverse_method="ns", lambda_init=3.0, t3=5, eta=1e-5)
-    hist = {}
-    for where in ("cuda", "cpu"):
-        mlp = MLP(small, device=where)
-        params = mlp.init_params(torch.Generator().manual_seed(0))
-        data = SyntheticAutoencoderData(small[0], 8, 256, seed=7,
-                                        device=where)
-        noise = lambda step, shape, where=where: torch.rand(
-            shape, generator=torch.Generator().manual_seed(step)).to(where)
-        tr = Trainer(mlp, kfac(mlp, cfg, family="bernoulli", device=where),
-                     TrainConfig(seed=0, log_every=10 ** 9), noise=noise,
-                     device=where)
-        hist[where] = [h["loss"] for h in tr.fit(
-            params, data, steps=6, log=lambda *_: None)["history"]]
-    print(f"[agree] reduced autoencoder losses cuda {hist['cuda']}")
-    print(f"        plain versions on the cpu    {hist['cpu']}")
-    for a, b in zip(hist["cuda"], hist["cpu"]):
-        if not abs(a - b) <= 1e-3 * abs(b):
-            raise AssertionError(f"cuda path {a} vs cpu path {b}")
+    for label, cfg in paths.items():
+        hist = {}
+        for where in ("cuda", "cpu"):
+            mlp = MLP(small, device=where)
+            params = mlp.init_params(torch.Generator().manual_seed(0))
+            data = SyntheticAutoencoderData(small[0], 8, 256, seed=7,
+                                            device=where)
+            noise = lambda step, shape, where=where: torch.rand(
+                shape, generator=torch.Generator().manual_seed(step)).to(
+                    where)
+            tr = Trainer(mlp, kfac(mlp, cfg, family="bernoulli",
+                                   device=where),
+                         TrainConfig(seed=0, log_every=10 ** 9), noise=noise,
+                         device=where)
+            hist[where] = [h["loss"] for h in tr.fit(
+                params, data, steps=6, log=lambda *_: None)["history"]]
+        print(f"[agree:{label}] reduced autoencoder losses cuda "
+              f"{hist['cuda']}")
+        print(f"        plain versions on the cpu    {hist['cpu']}")
+        for a, b in zip(hist["cuda"], hist["cpu"]):
+            if not abs(a - b) <= 1e-3 * abs(b):
+                raise AssertionError(f"{label}: cuda path {a} vs cpu path "
+                                     f"{b}")
 
-    # ---- 5. the main path --------------------------------------------
+    # ---- 5. the main paths -------------------------------------------
     steps = 25
     mlp = MLP(dims, device="cuda")
     params = mlp.init_params(torch.Generator().manual_seed(0))
     data = SyntheticAutoencoderData(dims[0], 8, N_ROWS, seed=7,
                                     device="cuda")
-    cfg = KFACConfig(inv_mode="blkdiag", inverse_method="ns",
-                     lambda_init=3.0, t3=5, eta=1e-5)
-    opt = kfac(mlp, cfg, family="bernoulli", device="cuda")
-    step_ms = []
-
-    def timed_update(*args, _update=opt.update):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = _update(*args)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    trainer = Trainer(mlp, dataclasses.replace(opt, update=timed_update),
-                      TrainConfig(steps=steps, seed=0, log_every=5),
-                      device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    K.reset_launches()
-    out = trainer.fit(params, data, steps=steps,
-                      log=lambda msg: print(f"  {msg}"))
-    torch.cuda.synchronize()
-    launches = K.launches()
-    peak = torch.cuda.max_memory_allocated()
-    losses = [h["loss"] for h in out["history"]]
-    print(f"[main] full width {dims}, N={N_ROWS}, {steps} steps")
-    print(f"  per-step ms: {[round(t, 3) for t in step_ms]}")
-    srt = sorted(step_ms)
-    print(f"  step ms: median {srt[len(srt) // 2]:.3f}, min {srt[0]:.3f}, "
-          f"max {srt[-1]:.3f}; peak memory {peak / 2 ** 20:.1f} MiB, of "
-          f"which {resident / 2 ** 20:.1f} MiB was allocated before the run")
-    print(f"  losses: first {losses[0]:.4f}, last {losses[-1]:.4f}")
-    print(f"  launches: {launches}")
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"loss not finite and falling: {losses}")
     # schedule: refreshes at steps 0, 1, 2 (warmup), 5, 10, 15 (T3) and the
-    # gamma sweep at 20 (3 candidates batched into the same launches)
-    n_refresh = 7
-    want = {"factor_update": 16 * steps,
-            "precondition": 8 * steps + 2 * 8,
-            "ns_step": n_refresh * 16 * cfg.ns_iters}
-    want["matmul"] = 2 * (want["precondition"] + want["ns_step"])
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
+    # gamma sweep at 20 (3 candidates: batched into the NS launches; one
+    # rotate_rescale per candidate and layer in eigen mode; the fused path
+    # applies candidate 0 only)
+    refresh_steps, sweep_step, n_refresh = (1, 2, 5, 10, 15), 20, 7
+    zero = {name: 0 for name in K.WRAPPERS}
+    ns = n_refresh * 16 * paths["blkdiag"].ns_iters
+    want = {"blkdiag": dict(zero, factor_update=16 * steps,
+                            precondition=8 * steps + 2 * 8, ns_step=ns,
+                            matmul=2 * (8 * steps + 2 * 8 + ns)),
+            "eigen": dict(zero, factor_update=16 * steps,
+                          rotate_rescale=8 * steps + 2 * 8,
+                          matmul_rescale=8 * steps + 2 * 8,
+                          matmul=3 * (8 * steps + 2 * 8)),
+            "fused": dict(zero, factor_update=16 * steps, ns_step=ns,
+                          precond_momentum=8 * steps,
+                          axpy_momentum=8 * steps,
+                          matmul=2 * ns + 8 * steps)}
+    main_out, launches_by_path, profiles = {}, {}, {}
+    for label, cfg in paths.items():
+        opt = kfac(mlp, cfg, family="bernoulli", device="cuda")
+        step_ms = []
+
+        def timed_update(*args, _update=opt.update):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _update(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        trainer = Trainer(mlp, dataclasses.replace(opt, update=timed_update),
+                          TrainConfig(steps=steps, seed=0, log_every=5),
+                          device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        K.reset_launches()
+        out = trainer.fit(params, data, steps=steps,
+                          log=lambda msg: print(f"  {msg}"))
+        torch.cuda.synchronize()
+        launches = K.launches()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in out["history"]]
+        srt = sorted(step_ms)
+        plain = sorted(t for i, t in enumerate(step_ms)
+                       if i not in (0, sweep_step, *refresh_steps))
+        print(f"[main:{label}] full width {dims}, N={N_ROWS}, {steps} steps")
+        print(f"  per-step ms: {[round(t, 3) for t in step_ms]}")
+        print(f"  step ms: median {srt[len(srt) // 2]:.3f}, min {srt[0]:.3f}"
+              f", max {srt[-1]:.3f}; plain-step median "
+              f"{plain[len(plain) // 2]:.3f}; refresh steps "
+              f"{[round(step_ms[i], 3) for i in refresh_steps]}; sweep step "
+              f"{step_ms[sweep_step]:.3f}; peak memory "
+              f"{peak / 2 ** 20:.1f} MiB, of which "
+              f"{resident / 2 ** 20:.1f} MiB was allocated before the run")
+        print(f"  losses: first {losses[0]:.4f}, last {losses[-1]:.4f}")
+        print(f"  launches: {launches}")
+        if (not all(math.isfinite(v) for v in losses)
+                or not losses[-1] < losses[0]):
+            raise AssertionError(f"{label}: loss not finite and falling: "
+                                 f"{losses}")
+        clipped = cfg.kl_clip > 0 or cfg.clip_delta_norm > 0
+        nus = [h.get("nu") for h in out["history"]] if clipped else []
+        norms = [h["delta_norm"] for h in out["history"]] if clipped else []
+        if clipped:
+            print(f"  nu per step: {[round(v, 6) for v in nus]}")
+            print(f"  applied |delta| per step: "
+                  f"{[float(f'{v:.4e}') for v in norms]}")
+            if not all(v is not None and 0.0 < v <= 1.0 for v in nus):
+                raise AssertionError(f"{label}: clip factor nu outside "
+                                     f"(0, 1]: {nus}")
+            if not all(math.isfinite(v) and v > 0.0 for v in norms):
+                raise AssertionError(f"{label}: applied step norm not finite "
+                                     f"and positive: {norms}")
+        if launches != want[label]:
+            raise AssertionError(f"{label}: launch counts {launches}, "
+                                 f"expected {want[label]}")
+        launches_by_path[label] = launches
+        main_out[label] = {
+            "steps": steps, "n_rows": N_ROWS, "step_ms": step_ms,
+            "step_ms_median": srt[len(srt) // 2], "step_ms_min": srt[0],
+            "step_ms_max": srt[-1],
+            "plain_step_ms_median": plain[len(plain) // 2],
+            "refresh_step_ms": {i: step_ms[i] for i in refresh_steps},
+            "sweep_step_ms": step_ms[sweep_step],
+            "peak_mem_bytes": peak, "resident_bytes_before": resident,
+            "losses": losses, "launches": launches,
+            **({"nu": nus, "delta_norm": norms} if clipped else {})}
 
     # ---- 6. where the time goes --------------------------------------
-    profile_main_path(mlp, params, data, cfg, steps)
+    for label, cfg in paths.items():
+        profiles[label] = profile_path(label, mlp, params, data, cfg, steps)
+        main_out[label]["profile"] = profiles[label]
 
     # ---- 7. summary --------------------------------------------------
     kernels = []
-    for name in ("matmul", "factor_update", "precondition", "ns_step"):
+    for name in ("matmul", "factor_update", "precondition", "ns_step",
+                 "matmul_rescale", "rotate_rescale", "axpy_momentum",
+                 "precond_momentum"):
         r = rows[name]
+        by_path = {label: n[name] for label, n in launches_by_path.items()}
+        if not any(by_path.values()):
+            raise AssertionError(f"{name} launched on no main path")
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": launches[name],
+            "replaces": r["replaces"], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "library_calls": r.get("library_calls"),
             "eager_ms": r["eager_ms"], "unit": r["unit"]})
-    print(json.dumps({"main": {"steps": steps, "n_rows": N_ROWS,
-                               "step_ms": step_ms,
-                               "step_ms_median": srt[len(srt) // 2],
-                               "peak_mem_bytes": peak,
-                               "resident_bytes_before": resident,
-                               "losses": losses}}))
+    print(f"[total] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"main": main_out, "eigh_16_factors_eager_ms": eigh_ms}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,7 +2,7 @@
 
 Field names and defaults match the reference for every field this port
 reads.  A field that selects a mode the port does not have yet raises
-``NotImplementedError`` when it is set away from its default.
+``NotImplementedError`` when it is set to that mode.
 
 Not carried over: ``kernel_backend`` and ``autotune`` chose between XLA and
 the Pallas kernels and tuned Pallas tiles on a TPU.  The port chooses by
@@ -15,15 +15,14 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-# field -> the only value this port supports so far
+# field -> the values this port supports so far
 _PORTED_ONLY = {
-    "inv_mode": "blkdiag",
-    "refresh_mode": "serial",
-    "fused_stats": False,
-    "use_rescale": True,
-    "tau1": 1.0,
-    "tau2": 1.0,
-    "stats_period": 1,
+    "inv_mode": ("blkdiag", "eigen"),
+    "refresh_mode": ("serial",),
+    "fused_stats": (False,),
+    "tau1": (1.0,),
+    "tau2": (1.0,),
+    "stats_period": (1,),
 }
 
 
@@ -32,6 +31,10 @@ class KFACConfig:
     """The paper's optimizer hyper-parameters (section references in brackets)."""
 
     inv_mode: str = "blkdiag"         # blkdiag                 [S4.2]
+                                      # | eigen (EKFAC, 1806.03884): amortized
+                                      # factor eigenbases + per-step diagonal
+    eigen_decay: float = 0.95         # eigen mode: EMA decay of the
+                                      # eigenbasis second-moment diagonal s
     inverse_method: str = "ns"        # ns | eigh | solve       [S8 / App B]
     ns_iters: int = 12                # Newton-Schulz iterations (cold start)
 
@@ -49,17 +52,24 @@ class KFACConfig:
 
     use_momentum: bool = True         # (alpha, mu) from exact-F 2x2 solve [S7]
     use_rescale: bool = True          # exact-F alpha rescale     [S6.4]
+    fixed_lr: float = 0.05            # used only when use_rescale=False
 
     fused_stats: bool = False
+    fixed_momentum: float = 0.0       # use_rescale=False only: heavy-ball
+                                      # mu for the fused update chain
+    clip_delta_norm: float = 0.0      # use_rescale=False only: global-norm
+                                      # clip of the applied update (0 = off)
+    kl_clip: float = 0.0              # use_rescale=False only: norm-constraint
+                                      # max lr²·|Δᵀ∇| per step (0 = off)
     stats_period: int = 1             # update stats every N steps
     refresh_mode: str = "serial"      # how the T3 inverse refresh is executed
 
     def __post_init__(self):
-        for name, want in _PORTED_ONLY.items():
-            if getattr(self, name) != want:
+        for name, ok in _PORTED_ONLY.items():
+            if getattr(self, name) not in ok:
                 raise NotImplementedError(
                     f"KFACConfig.{name}={getattr(self, name)!r} is not ported "
-                    f"yet (only {want!r})")
+                    f"yet (only {' or '.join(map(repr, ok))})")
         if self.inverse_method not in ("ns", "eigh", "solve"):
             raise ValueError(f"unknown inverse_method {self.inverse_method!r}")
 

@@ -61,6 +61,43 @@ class CurvatureBlock(abc.ABC):
     def precondition(self, inv, v):
         """``U = Ā⁻¹ V G⁻¹`` with this block's structure; v shaped like W."""
 
+    def precond_momentum(self, inv, v, mom, alpha, mu, eigen: bool = False):
+        """Fused update chain of the fixed-lr path (S4.2 + S7):
+        ``D = alpha·precondition(v) + mu·mom`` plus ``Σ D²``, so the
+        global-norm clip never re-reads the update.  Subclasses may serve
+        this with one kernel."""
+        u = (self.precondition_eigen(inv, v) if eigen
+             else self.precondition(inv, v))
+        d = alpha * u.float() + mu * mom
+        return d, torch.sum(d * d)
+
+    # -- eigenbasis (EKFAC) path, George et al. 1806.03884 --------------
+    def eigen_state(self, fac, gamma):
+        """Amortized refresh: factor eigenbases + eigenbasis diagonals
+        ``{"qa", "qg", "s", "damp"}``."""
+        return INV.eigen_pair_state(self.meta, fac["a"], fac["g"], gamma)
+
+    def eigen_identity(self):
+        """Pre-refresh placeholder with the post-refresh structure: identity
+        bases and a unit diagonal (an identity preconditioner)."""
+        m = self.meta
+        eye = lambda d: torch.eye(d, device=self.device)
+        return {"qa": eye(m.a_dim), "qg": eye(m.g_dim),
+                "s": torch.ones(m.a_dim, m.g_dim, device=self.device),
+                "damp": torch.zeros(m.a_dim, m.g_dim, device=self.device)}
+
+    def eigen_state_multi(self, fac, gammas):
+        """Candidate-stacked eigen states (gamma sweep) from one eigh."""
+        return INV.eigen_pair_multi(self.meta, fac["a"], fac["g"], gammas)
+
+    def rescale_step(self, eig, grad, eps):
+        """Per-step second-moment update ``s ← εs + (1−ε)(Q_Aᵀ ∇ Q_G)²``."""
+        return INV.eigen_rescale(eig, grad, eps)
+
+    def precondition_eigen(self, eig, v):
+        """``U = Q_A [ (Q_Aᵀ V Q_G) / (s + damp) ] Q_Gᵀ``; v shaped like W."""
+        return INV.apply_eigen(eig, v)
+
 
 _REGISTRY: Dict[str, List[Type[CurvatureBlock]]] = {}
 

@@ -6,6 +6,17 @@ factors are damped as ``(Ā + π γ I) ⊗ (G + γ/π I)`` with the trace-norm
 ``ns`` (Newton–Schulz, hot-startable; its iteration body is the
 ``kernels.ns_step`` kernel on the card) and ``solve`` (dense inverse).
 
+Eigenbasis (EKFAC) state, George et al. 1806.03884: instead of damped
+factor inverses, :func:`eigen_pair_state` keeps the eigenbases ``Q_A, Q_G``
+on the T3 schedule plus a per-entry diagonal in that basis, split into
+``s`` (second moments, re-estimated every step from the rotated gradient by
+:func:`eigen_rescale`) and ``damp`` (the factored-Tikhonov diagonal
+``(γ/π)λ_A + πγλ_G + γ²``).  Right after a refresh
+``s + damp = (λ_A + πγ)(λ_G + γ/π)``, so :func:`apply_eigen` is the ``eigh``
+inverse apply.  The eigendecomposition is ``torch.linalg.eigh``, as the
+reference calls ``jnp.linalg.eigh``; its basis is unique only up to column
+signs (and rotations inside near-degenerate eigenspaces).
+
 Everything is batched over leading dims: ``gamma`` may be a (c,) tensor of
 candidates (the S6.6 sweep), which stacks the inverses along a leading c.
 No function here reads a device value on the host.
@@ -83,6 +94,77 @@ def damped_pair_inverse(meta: LayerMeta, a, g, gamma, *, method="eigh",
     g_inv = factor_inverse(g, gamma / pi, method=method, iters=iters,
                            prev=None if prev is None else prev.get("g_inv"))
     return {"a_inv": a_inv, "g_inv": g_inv}
+
+
+# ---------------------------------------------------------------------------
+# eigenbasis (EKFAC) state:  F ≈ (Q_A ⊗ Q_G) diag(s + damp) (Q_A ⊗ Q_G)ᵀ
+# ---------------------------------------------------------------------------
+
+def eigh_basis(arr):
+    """``(q, w)``: the eigenbasis of one factor and its eigenvalues, with
+    eigh's tiny negatives clipped to 0 (the factor is PSD)."""
+    w, q = torch.linalg.eigh(arr)
+    return q, torch.clamp(w, min=0.0)
+
+
+def rotate_eigen(qa, qg, v, *, adjoint: bool):
+    """``Q_Aᵀ V Q_G`` (adjoint: into the eigenbasis) or ``Q_A V Q_Gᵀ``."""
+    if adjoint:
+        return (qa.transpose(-1, -2) @ v) @ qg
+    return (qa @ v) @ qg.transpose(-1, -2)
+
+
+def _eigen_parts(meta: LayerMeta, a, g):
+    """The gamma-independent pieces: bases, eigenvalue column/row, pi."""
+    qa, wa = eigh_basis(a)
+    qg, wg = eigh_basis(g)
+    pi = pi_trace(a, meta.a_dim, g, meta.g_dim)
+    return qa, qg, wa[..., :, None], wg[..., None, :], pi
+
+
+def _eigen_damp(wa_col, wg_row, pi, gamma):
+    """Factored-Tikhonov diagonal ``(γ/π)λ_A + πγλ_G + γ²``; a (c,) gamma
+    stacks the candidates on a leading dim."""
+    gamma = torch.as_tensor(gamma, dtype=torch.float32, device=wa_col.device)
+    return ((gamma / pi)[..., None, None] * wa_col
+            + (pi * gamma)[..., None, None] * wg_row
+            + torch.square(gamma)[..., None, None])
+
+
+def eigen_pair_state(meta: LayerMeta, a, g, gamma):
+    """Amortized EKFAC state of one block: ``{"qa", "qg", "s", "damp"}``,
+    ``s`` the Kronecker eigenvalue products ``λ_A,i λ_G,j`` and ``damp`` the
+    factored-Tikhonov cross terms."""
+    qa, qg, wa_col, wg_row, pi = _eigen_parts(meta, a, g)
+    s = wa_col * wg_row
+    damp = _eigen_damp(wa_col, wg_row, pi, gamma).expand(s.shape)
+    return {"qa": qa, "qg": qg, "s": s, "damp": damp.contiguous()}
+
+
+def eigen_pair_multi(meta: LayerMeta, a, g, gammas):
+    """Candidate-stacked eigen states for the S6.6 gamma sweep from ONE
+    eigendecomposition per factor: only ``damp`` depends on gamma, so the
+    bases and ``s`` are broadcast (views) over the leading candidate dim."""
+    qa, qg, wa_col, wg_row, pi = _eigen_parts(meta, a, g)
+    s = wa_col * wg_row
+    n = gammas.shape[0]
+    damp = _eigen_damp(wa_col, wg_row, pi, gammas).expand(n, *s.shape)
+    tile = lambda x: x.expand(n, *x.shape)
+    return {"qa": tile(qa), "qg": tile(qg), "s": tile(s),
+            "damp": damp.contiguous()}
+
+
+def eigen_rescale(eig, grad, eps):
+    """Per-step EKFAC diagonal update ``s ← εs + (1−ε)(Q_Aᵀ ∇ Q_G)²``."""
+    t = rotate_eigen(eig["qa"], eig["qg"], grad.float(), adjoint=True)
+    return dict(eig, s=eps * eig["s"] + (1.0 - eps) * torch.square(t))
+
+
+def apply_eigen(eig, v, floor: float = 1e-12):
+    """``U = Q_A [ (Q_Aᵀ V Q_G) / (s + damp) ] Q_Gᵀ``; v shaped like W."""
+    t = rotate_eigen(eig["qa"], eig["qg"], v.float(), adjoint=True)
+    t = t / (eig["s"] + eig["damp"] + floor)
+    return rotate_eigen(eig["qa"], eig["qg"], t, adjoint=False)
 
 
 def apply_block_inverse(meta: LayerMeta, inv: Dict, v):

@@ -40,18 +40,19 @@ extern "C" int repro_factor_update_f32(const float* x, const float* c,
                                        int splits, const float* ab,
                                        void* stream) {
   if (splits <= 1)
-    return repro_torch::launch_gemm_f32<true>(x, x, c, out, 1, d, d, n, n, 0,
-                                              0, 0, 0, ab, 0.f, 0.f, stream);
+    return repro_torch::launch_gemm_f32<true, repro_torch::kAxpby>(
+        x, x, c, out, 1, d, d, n, n, 0, 0, 0, 0, ab, 0.f, 0.f, nullptr,
+        stream);
   // chunk rows, a multiple of the K tile; the last chunk may be short
   const int per = (n + splits - 1) / splits;
   const int chunk = (per + repro_torch::kBK - 1) / repro_torch::kBK *
                     repro_torch::kBK;
   const int used = (n + chunk - 1) / chunk;
   const long long dd = static_cast<long long>(d) * d;
-  const int status = repro_torch::launch_gemm_f32<true>(
+  const int status = repro_torch::launch_gemm_f32<true, repro_torch::kAxpby>(
       x, x, nullptr, ws, used, d, d, chunk, n,
       static_cast<long long>(chunk) * d, static_cast<long long>(chunk) * d, 0,
-      dd, nullptr, 1.f, 0.f, stream);
+      dd, nullptr, 1.f, 0.f, nullptr, stream);
   if (status != 0) return status;
   const int threads = 256;
   const long long blocks = (dd + threads - 1) / threads;

@@ -1,8 +1,10 @@
-// Shared-memory tiled fp32 GEMM with a scale/accumulate epilogue, the body of
-// both hand-written kernels of this package:
+// Shared-memory tiled fp32 GEMM with a choice of epilogues, the body of every
+// hand-written kernel of this package:
 //
-//   matmul.cu         O[b] = alpha * A[b] @ B[b] + beta * C[b]
-//   factor_update.cu  O    = alpha * X^T X      + beta * C
+//   matmul.cu          O[b] = alpha * A[b] @ B[b] + beta * C[b]    (kAxpby)
+//   factor_update.cu   O    = alpha * X^T X      + beta * C        (kAxpby)
+//   rotate_rescale.cu  O[b] = (A[b] @ B[b]) / (C[b] + alpha)       (kRescale)
+//   update_chain.cu    O    = alpha * A @ B + beta * C, + sum O^2  (kAxpyNorm)
 //
 // Design (simple and correct first): a 64 x 64 output tile per block of 256
 // threads, each thread owning a 4 x 4 register patch; K is a loop inside the
@@ -12,9 +14,16 @@
 // All arithmetic is fp32 FMA on the CUDA cores: no TF32, no tensor cores.
 // wgmma/TMA pipelines are later work.
 //
+// The epilogue is a template parameter that only the final loop over the
+// register patch reads, so the kAxpby instantiations of matmul and
+// factor_update carry no code of the other epilogues (one unused pointer
+// aside) and keep their register counts, 70 and 80.  An epilogue passed as
+// a functor instead gave the plain matmul 91 registers and cost it 15%.
+//
 // alpha/beta come either by value or, when `ab` is non-null, from a
 // 2-float device buffer read inside the kernel, so values that live on the
-// device (the decay eps of the factor statistics) need no host sync.
+// device (the decay eps of the factor statistics, the damping lam, the
+// fixed-lr chain's alpha and mu) need no host sync.
 //
 // In the X^T X form, blockIdx.z splits K (the rows of X) into chunks of K
 // rows, the last one cut at k_total, so that a narrow factor (one 64 x 64
@@ -33,6 +42,15 @@ constexpr int kTM = 4;         // rows per thread
 constexpr int kTN = 4;         // cols per thread
 constexpr int kThreads = 256;  // (kBM / kTM) * (kBN / kTN)
 
+enum Epilogue : int {
+  kAxpby,     // O = alpha * acc + beta * C (C may be null)
+  kRescale,   // O = acc / (C + alpha): the damped eigenbasis rescale
+  kAxpyNorm,  // O = alpha * acc + beta * C, and the block's sum of O^2
+              // over its valid entries into partials[z][y][x]: a
+              // warp-shuffle tree, then the 8 warp sums in a fixed order,
+              // no atomics, so the sum is the same on every run
+};
+
 // XTX == false: A is (M, K) row-major; element (m, k) = A[m * K + k].
 // XTX == true : A is X of shape (K, M) row-major and the kernel reads its
 //               transpose; element (m, k) = X[k * M + m].
@@ -40,13 +58,14 @@ constexpr int kThreads = 256;  // (kBM / kTM) * (kBN / kTN)
 // operand by its batch stride (0 broadcasts one operand over the batch);
 // with XTX the batch is the K split and block z sums rows
 // [z * K, min((z + 1) * K, k_total)).
-template <bool XTX>
+template <bool XTX, int EPI>
 __global__ void __launch_bounds__(kThreads)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                 const float* __restrict__ C, float* __restrict__ O,
                 int M, int N, int K, int k_total,
                 long long sA, long long sB, long long sC, long long sO,
-                const float* __restrict__ ab, float alpha, float beta) {
+                const float* __restrict__ ab, float alpha, float beta,
+                float* __restrict__ partials) {
   __shared__ __align__(16) float As[kBK][kBM + 4];  // A tile, k-major
   __shared__ __align__(16) float Bs[kBK][kBN];
 
@@ -109,6 +128,7 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
     __syncthreads();
   }
 
+  float sq = 0.f;
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int gm = row0 + ty * kTM + i;
@@ -118,26 +138,47 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
       const int gn = col0 + tx * kTN + j;
       if (gn >= N) continue;
       const long long o = (long long)gm * N + gn;
-      float v = alpha * acc[i][j];
-      if (C != nullptr) v = fmaf(beta, C[o], v);
+      float v;
+      if constexpr (EPI == kRescale) {
+        v = acc[i][j] / (C[o] + alpha);
+      } else {
+        v = alpha * acc[i][j];
+        if (C != nullptr) v = fmaf(beta, C[o], v);
+      }
       O[o] = v;
+      if constexpr (EPI == kAxpyNorm) sq = fmaf(v, v, sq);
+    }
+  }
+  if constexpr (EPI == kAxpyNorm) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sq += __shfl_down_sync(0xffffffffu, sq, off);
+    __shared__ float warp_sq[kThreads / 32];
+    if (tid % 32 == 0) warp_sq[tid / 32] = sq;
+    __syncthreads();
+    if (tid == 0) {
+      float total = 0.f;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) total += warp_sq[w];
+      partials[(bz * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = total;
     }
   }
 }
 
 // Launch on `stream`; returns cudaGetLastError() as an int (0 = success).
-template <bool XTX>
+template <bool XTX, int EPI>
 inline int launch_gemm_f32(const float* A, const float* B, const float* C,
                            float* O, int batch, int M, int N, int K,
                            int k_total, long long sA, long long sB,
-                           long long sC,
-                           long long sO, const float* ab, float alpha,
-                           float beta, void* stream) {
+                           long long sC, long long sO, const float* ab,
+                           float alpha, float beta, float* partials,
+                           void* stream) {
   if (batch <= 0 || M <= 0 || N <= 0) return 0;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
-  gemm_f32_kernel<XTX><<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      A, B, C, O, M, N, K, k_total, sA, sB, sC, sO, ab, alpha, beta);
+  gemm_f32_kernel<XTX, EPI>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          A, B, C, O, M, N, K, k_total, sA, sB, sC, sO, ab, alpha, beta,
+          partials);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,6 +39,11 @@ _SIGNATURES = {
                          _P, _F, _F, _P],
     # x, c, out, ws, n, d, splits, ab, stream
     "repro_factor_update_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # a, b, s, out, batch, m, n, k, sa, sb, ss, so, lam_ab, lam, stream
+    "repro_matmul_rescale_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                                 _L, _P, _F, _P],
+    # a_inv, t, mom, out, partials, m, n, k, am, stream
+    "repro_axpy_momentum_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -68,24 +73,35 @@ def _digest(files) -> str:
 
 
 def _compile(sources, out: Path, tag: str) -> str:
+    """Compile every source (one ``nvcc`` each, all started together) and
+    link them into ``out``.  The objects carry this process's id, so two
+    processes building the same sources at once never touch each other's
+    files, and they are removed whether or not the build succeeds; the
+    library is linked under a per-process name and moved into place with
+    one atomic ``os.replace``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    objs = [BUILD_DIR / f"{s.stem}_{tag}.o" for s in sources]
-    procs = [subprocess.Popen([nvcc, *ARCH, *FLAGS, "-c", str(s), "-o", str(o)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(sources, objs)]
-    logs = [(s, p, p.communicate()[0]) for s, p in zip(sources, procs)]
-    for s, p, text in logs:
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {s.name}:\n{text}")
+    objs = [BUILD_DIR / f"{s.stem}_{tag}.{os.getpid()}.o" for s in sources]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
-                           *map(str, objs)],
-                          capture_output=True, text=True)
-    if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-    os.replace(tmp, out)
+    try:
+        procs = [subprocess.Popen([nvcc, *ARCH, *FLAGS, "-c", str(s), "-o",
+                                   str(o)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(sources, objs)]
+        logs = [(s, p, p.communicate()[0]) for s, p in zip(sources, procs)]
+        for s, p, text in logs:
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s.name}:\n{text}")
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return "\n".join(f"== {s.name}\n{text}" for s, _, text in logs)
 
 

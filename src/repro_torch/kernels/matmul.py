@@ -17,6 +17,8 @@ blocking (4×4 outputs per thread, 64×64 tiles); tensor cores are later work.
 """
 from __future__ import annotations
 
+from typing import List, NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
@@ -34,9 +36,47 @@ def _batch_stride(t, batch, name):
     if t.dim() == 2:
         return 0
     if t.shape[0] not in (1, batch):
-        raise ValueError(f"matmul: batch dim of {name} is {t.shape[0]}, "
-                         f"expected 1 or {batch}")
+        raise ValueError(f"batch dim of {name} is {t.shape[0]}, expected 1 "
+                         f"or {batch}")
     return 0 if t.shape[0] == 1 else t.shape[1] * t.shape[2]
+
+
+class Operands(NamedTuple):
+    a: torch.Tensor         # row-major copies (views when already so)
+    b: torch.Tensor
+    epi: List[torch.Tensor]  # epilogue operands
+    batch: int              # 0: no batch dim
+    m: int
+    n: int
+    k: int
+    strides: List[int]      # batch strides of a, b, *epi (0 broadcasts)
+    out: torch.Tensor       # ([batch,] m, n), uninitialized
+
+
+def operands(name, a, b, *epi) -> Operands:
+    """The checks and layout every wrapper of the shared tile needs:
+    a ([B,] M, K) @ b ([B,] K, N) with epilogue operands ([B,] M, N), all
+    float32 on one CUDA device, at most one batch dim; raises otherwise.
+    Every operand is made row-major (``.contiguous()``): a transposed view
+    such as ``q.T`` is copied."""
+    ops = [a, b, *epi]
+    _build.require_cuda_f32(name, *ops)
+    if not all(t.dim() in (2, 3) for t in ops):
+        raise ValueError(f"{name}: operands must be 2-D or 3-D (one batch "
+                         f"dim)")
+    m, k = a.shape[-2:]
+    k2, n = b.shape[-2:]
+    if k != k2 or any(tuple(t.shape[-2:]) != (m, n) for t in epi):
+        raise ValueError(f"{name}: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)} with "
+                         f"{[tuple(t.shape) for t in epi]}")
+    batch = max([t.shape[0] for t in ops if t.dim() == 3], default=0)
+    a, b, epi = a.contiguous(), b.contiguous(), [t.contiguous() for t in epi]
+    strides = [_batch_stride(t, batch, f"{name} operand {i}")
+               for i, t in enumerate((a, b, *epi))]
+    out = torch.empty(((batch,) if batch else ()) + (m, n), device=a.device,
+                      dtype=torch.float32)
+    return Operands(a, b, epi, batch, m, n, k, strides, out)
 
 
 def matmul(a, b, c=None, *, alpha=1.0, beta=0.0):
@@ -47,37 +87,22 @@ def matmul(a, b, c=None, *, alpha=1.0, beta=0.0):
     """
     if a.device.type == "cpu":
         return matmul_ref(a, b, c, alpha=alpha, beta=beta)
-    ops = [a, b] + ([c] if c is not None else [])
-    _build.require_cuda_f32("matmul", *ops)
-    if not all(t.dim() in (2, 3) for t in ops):
-        raise ValueError("matmul: operands must be 2-D or 3-D (one batch dim)")
-    m, k = a.shape[-2:]
-    k2, n = b.shape[-2:]
-    if k != k2 or (c is not None and tuple(c.shape[-2:]) != (m, n)):
-        raise ValueError(f"matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)}"
-                         f" + {None if c is None else tuple(c.shape)}")
-    batch = max([t.shape[0] for t in ops if t.dim() == 3], default=0)
-    a, b = a.contiguous(), b.contiguous()
-    sa, sb = _batch_stride(a, batch, "a"), _batch_stride(b, batch, "b")
+    op = operands("matmul", a, b, *([] if c is None else [c]))
     use_c = c is not None and not (isinstance(beta, (int, float)) and beta == 0)
-    if use_c:
-        c = c.contiguous()
-        sc = _batch_stride(c, batch, "c")
-    out = torch.empty(((batch,) if batch else ()) + (m, n), device=a.device,
-                      dtype=torch.float32)
     ab = None
     if isinstance(alpha, torch.Tensor) or isinstance(beta, torch.Tensor):
-        ab = _build.scalar_pair(alpha, beta, a.device)
+        ab = _build.scalar_pair(alpha, beta, op.a.device)
     status = _build.load().lib.repro_matmul_f32(
-        a.data_ptr(), b.data_ptr(), c.data_ptr() if use_c else None,
-        out.data_ptr(), max(batch, 1), m, n, k, sa, sb,
-        sc if use_c else 0, m * n if batch else 0,
+        op.a.data_ptr(), op.b.data_ptr(),
+        op.epi[0].data_ptr() if use_c else None, op.out.data_ptr(),
+        max(op.batch, 1), op.m, op.n, op.k, op.strides[0], op.strides[1],
+        op.strides[2] if use_c else 0, op.m * op.n if op.batch else 0,
         None if ab is None else ab.data_ptr(),
         0.0 if ab is not None else float(alpha),
-        0.0 if ab is not None else float(beta), _build.stream_of(a))
+        0.0 if ab is not None else float(beta), _build.stream_of(op.a))
     _build.check(status, "matmul")
     matmul.launches += 1
-    return out
+    return op.out
 
 
 matmul.launches = 0

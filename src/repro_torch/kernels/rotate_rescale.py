@@ -1,0 +1,81 @@
+"""EKFAC eigenbasis apply (George et al. 2018), paper S4.2 in the
+Kronecker eigenbasis:
+
+    U = Q_A [ (Q_Aᵀ V Q_G) / (S + λ) ] Q_Gᵀ
+
+Replaces ``repro/kernels/rotate_rescale.py::matmul_rescale`` (``pallas_call``
+at line 66) and ``rotate_rescale`` (line 86).  ``matmul_rescale`` is its own
+CUDA kernel (``csrc/rotate_rescale.cu``): the shared tile of
+``csrc/gemm_tile.cuh`` with the division by ``S + λ`` as its epilogue, so the
+rotated gradient is divided while it is still in registers.  λ comes by
+value or, as a 0-d tensor, from the device (no host read).
+``rotate_rescale`` is four launches, in the TPU kernel's order:
+``matmul(Q_Aᵀ, V)``, ``matmul_rescale(·, Q_G, S, λ)``, ``matmul(Q_A, ·)``,
+``matmul(·, Q_Gᵀ)``.  The tile reads row-major operands only, so the two
+transposes are copies (``a² + g²`` floats, a few microseconds beside the
+products).
+
+Bound on this card: fp32 FMA throughput, ``2·a·g·(a + g)`` operations for
+each of the two rotations of an (a, g) weight — 18.0 GFLOP (0.269 ms at
+67 TFLOP/s) for the 8 layers of the full-width autoencoder.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.matmul import matmul, operands
+
+
+def matmul_rescale_ref(a, b, s, lam=0.0):
+    """Plain PyTorch version (the CPU path and the card's oracle)."""
+    return (a.float() @ b.float()) / (s.float() + lam)
+
+
+def matmul_rescale(a, b, s, lam=0.0):
+    """``(a @ b) / (s + lam)``; a: ([B,] M, K); b: ([B,] K, N);
+    s: ([B,] M, N).  ``lam`` is a Python number or a 0-d tensor.  CPU
+    tensors take :func:`matmul_rescale_ref`; CUDA tensors launch the kernel
+    or raise."""
+    if a.device.type == "cpu":
+        return matmul_rescale_ref(a, b, s, lam)
+    op = operands("matmul_rescale", a, b, s)
+    # a 0-d tensor lam is read on the device from a (lam, 0) buffer
+    lam_ab = (_build.scalar_pair(lam, 0.0, op.a.device)
+              if isinstance(lam, torch.Tensor) else None)
+    status = _build.load().lib.repro_matmul_rescale_f32(
+        op.a.data_ptr(), op.b.data_ptr(), op.epi[0].data_ptr(),
+        op.out.data_ptr(), max(op.batch, 1), op.m, op.n, op.k, *op.strides,
+        op.m * op.n if op.batch else 0,
+        None if lam_ab is None else lam_ab.data_ptr(),
+        0.0 if lam_ab is not None else float(lam), _build.stream_of(op.a))
+    _build.check(status, "matmul_rescale")
+    matmul_rescale.launches += 1
+    return op.out
+
+
+matmul_rescale.launches = 0
+
+
+def rotate_rescale_ref(qa, v, qg, s, lam=0.0):
+    """Plain PyTorch version, in the kernel's order of products."""
+    qa, qg = qa.float(), qg.float()
+    t = qa.T @ v.float()
+    t = matmul_rescale_ref(t, qg, s, lam)
+    return (qa @ t) @ qg.T
+
+
+def rotate_rescale(qa, v, qg, s, lam=0.0):
+    """qa: (a, a); v: (a, g); qg: (g, g); s: (a, g).  CPU tensors take
+    :func:`rotate_rescale_ref`; CUDA tensors launch the four kernels."""
+    if v.device.type == "cpu":
+        return rotate_rescale_ref(qa, v, qg, s, lam)
+    t = matmul(qa.T.contiguous(), v)         # Q_Aᵀ V
+    t = matmul_rescale(t, qg, s, lam)        # (· Q_G) / (S + λ)
+    t = matmul(qa, t)                        # Q_A ·
+    u = matmul(t, qg.T.contiguous())         # · Q_Gᵀ
+    rotate_rescale.launches += 1
+    return u
+
+
+rotate_rescale.launches = 0

@@ -1,0 +1,78 @@
+"""The fused fixed-learning-rate update chain (paper S4.2 + S7):
+
+    D = α·(Ā⁻¹ V Ḡ⁻¹) + μ·M,      ΣD² as a by-product
+
+Replaces ``repro/kernels/update_chain.py::axpy_momentum`` (``pallas_call``
+at line 73) and ``precond_momentum`` (line 99).  ``precond_momentum`` is two
+launches: ``T = V Ḡ⁻¹`` through :func:`matmul`, then ``axpy_momentum``
+(``csrc/update_chain.cu``), whose epilogue forms ``α·(Ā⁻¹T) + μ·M`` in
+registers and sums D² over each 64×64 tile's valid entries into one float
+per tile, with no atomics.  The wrapper sums those partials on the device,
+so the global-norm and KL clips never re-read D.  α and μ are read from a
+2-float device buffer (no host read).  The TPU kernel's partials grid was
+``(M//128, N//128)``; this one follows the 64-tiles, so only the sum is
+comparable.
+
+Bound on this card: fp32 FMA throughput, ``2·a·g·(a + g)`` operations for an
+(a, g) weight — 9.0 GFLOP (0.134 ms at 67 TFLOP/s) for the 8 layers of the
+full-width autoencoder.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.matmul import matmul, operands
+
+_TILE = 64              # output tile edge of csrc/gemm_tile.cuh
+
+
+def axpy_momentum_ref(a_inv, t, mom, alpha, mu):
+    """Plain PyTorch version: ``(D, ΣD²)``."""
+    d = alpha * (a_inv.float() @ t.float()) + mu * mom.float()
+    return d, torch.sum(d * d)
+
+
+def axpy_momentum(a_inv, t, mom, alpha, mu):
+    """``D = alpha·(a_inv @ t) + mu·mom`` and ``ΣD²`` (a 0-d tensor).
+
+    a_inv: (M, K); t: (K, N); mom: (M, N); ``alpha``/``mu`` Python numbers
+    or 0-d tensors.  CPU tensors take :func:`axpy_momentum_ref`; CUDA
+    tensors launch the kernel or raise."""
+    if t.device.type == "cpu":
+        return axpy_momentum_ref(a_inv, t, mom, alpha, mu)
+    if a_inv.dim() != 2 or t.dim() != 2 or mom.dim() != 2:
+        raise ValueError("axpy_momentum: operands must be 2-D")
+    op = operands("axpy_momentum", a_inv, t, mom)
+    am = _build.scalar_pair(alpha, mu, op.a.device)
+    partials = torch.empty(-(-op.m // _TILE), -(-op.n // _TILE),
+                           device=op.a.device, dtype=torch.float32)
+    status = _build.load().lib.repro_axpy_momentum_f32(
+        op.a.data_ptr(), op.b.data_ptr(), op.epi[0].data_ptr(),
+        op.out.data_ptr(), partials.data_ptr(), op.m, op.n, op.k,
+        am.data_ptr(), _build.stream_of(op.a))
+    _build.check(status, "axpy_momentum")
+    axpy_momentum.launches += 1
+    return op.out, partials.sum()
+
+
+axpy_momentum.launches = 0
+
+
+def precond_momentum_ref(a_inv, v, g_inv, mom, *, alpha, mu):
+    """Plain PyTorch version, in the kernel's order (``T = V Ḡ⁻¹`` first)."""
+    return axpy_momentum_ref(a_inv, v.float() @ g_inv.float(), mom, alpha, mu)
+
+
+def precond_momentum(a_inv, v, g_inv, mom, *, alpha, mu):
+    """a_inv: (a, a); v: (a, g); g_inv: (g, g); mom: (a, g).  Returns
+    ``(D, ΣD²)``.  CPU tensors take :func:`precond_momentum_ref`; CUDA
+    tensors launch ``matmul`` and ``axpy_momentum``."""
+    if v.device.type == "cpu":
+        return precond_momentum_ref(a_inv, v, g_inv, mom, alpha=alpha, mu=mu)
+    out = axpy_momentum(a_inv, matmul(v, g_inv), mom, alpha, mu)
+    precond_momentum.launches += 1
+    return out
+
+
+precond_momentum.launches = 0

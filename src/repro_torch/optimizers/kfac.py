@@ -1,6 +1,7 @@
 """K-FAC as a staged pipeline (paper Algorithm 2); mirrors
-``repro/optimizers/kfac.py`` for ``inv_mode="blkdiag"`` and
-``refresh_mode="serial"``.
+``repro/optimizers/kfac.py`` for ``inv_mode="blkdiag"`` and ``"eigen"``
+(EKFAC) and ``refresh_mode="serial"``, with the exact-F re-scaling
+(``use_rescale=True``) or the fused fixed-lr chain (``use_rescale=False``).
 
 :class:`KFACEngine` holds the stage functions, each a ``state -> state`` map
 over :class:`~repro_torch.core.transform.KFACState`:
@@ -9,12 +10,20 @@ over :class:`~repro_torch.core.transform.KFACState`:
                         model-sampled g statistics, then the decayed factor
                         update (S5) through the ``factor_update`` kernel.
   ``refresh_inverses``  every T3 steps (and the first 3): damped inverses
-                        (S4.2/S6.3); ``refresh_multi`` the three gamma
-                        candidates of the S6.6 sweep, stacked on a leading
-                        dim instead of JAX's vmap.
-  ``apply_update``      every step: preconditioning (``precondition``
-                        kernel) with the exact-F re-scaling + momentum 2x2
-                        solve (S6.4/S7) and candidate selection by M(delta).
+                        (S4.2/S6.3), or in eigen mode the factor eigenbases
+                        and eigenbasis diagonals; ``refresh_multi`` the three
+                        gamma candidates of the S6.6 sweep, stacked on a
+                        leading dim instead of JAX's vmap (eigen mode shares
+                        one eigh across them).
+  ``rescale_step``      eigen mode, every step but the sweep's: the EKFAC
+                        diagonal re-estimated from the gradient.
+  ``apply_update``      every step: preconditioning (``precondition`` or, in
+                        eigen mode, ``rotate_rescale`` kernel) with the
+                        exact-F re-scaling + momentum 2x2 solve (S6.4/S7)
+                        and candidate selection by M(delta).
+  ``apply_update_fused`` every step when ``use_rescale=False``: the fixed-lr
+                        chain ``D = −lr·Ā⁻¹VḠ⁻¹ + μ·M`` with ``ΣD²`` from the
+                        ``update_chain`` kernel, then the KL and norm clips.
   ``lambda_step``       every T1 steps: reduction ratio rho + LM rule (S6.5).
 
 :class:`KFACPipeline` schedules them off the step counter, and :func:`kfac`
@@ -64,6 +73,7 @@ class KFACEngine:
         self.metas = model.metas
         self.tagged = {m.param_path for m in self.metas.values()}
         self.blocks = build_blocks(self.metas, cfg, self.device)
+        self.eigen = cfg.inv_mode == "eigen"
 
     def n_tokens(self, batch) -> int:
         return int(batch["x"].shape[0])
@@ -95,7 +105,8 @@ class KFACEngine:
             lam=self._scalar(cfg.lambda_init),
             gamma=self._scalar(math.sqrt(cfg.lambda_init + cfg.eta)),
             factors=factors,
-            inv={name: blk.identity_inverse()
+            inv={name: (blk.eigen_identity() if self.eigen
+                        else blk.identity_inverse())
                  for name, blk in self.blocks.items()},
             diag=diag,
             delta0=T.tree_map(lambda p: torch.zeros_like(p,
@@ -144,6 +155,9 @@ class KFACEngine:
     # ------------------------------------------------------------------
     def _inverses_for(self, factors, gamma, prev=None):
         cfg = self.cfg
+        if self.eigen:
+            return {name: blk.eigen_state(factors[name], gamma)
+                    for name, blk in self.blocks.items()}
         return {name: blk.damped_inverse(
                     factors[name], gamma, method=cfg.inverse_method,
                     iters=cfg.ns_iters,
@@ -157,9 +171,27 @@ class KFACEngine:
 
     def refresh_multi(self, state: KFACState):
         """Inverses for the 3 gamma candidates (S6.6), stacked on a leading
-        dim of 3 (the reference vmaps over the candidates)."""
+        dim of 3 (the reference vmaps over the candidates).  Eigen mode
+        shares one eigendecomposition across the candidates: only the damp
+        diagonal depends on gamma."""
         gammas = D.gamma_candidates(state.gamma, self._omega2())
+        if self.eigen:
+            return gammas, {name: blk.eigen_state_multi(state.factors[name],
+                                                        gammas)
+                            for name, blk in self.blocks.items()}
         return gammas, self._inverses_for(state.factors, gammas)
+
+    def rescale_step(self, state: KFACState, grads):
+        """Eigen mode, every step: re-estimate each block's eigenbasis
+        second-moment diagonal from the current (unregularized) gradient;
+        the bases stay on the T3 schedule.  No-op in blkdiag mode."""
+        if not self.eigen:
+            return state
+        eps = self._scalar(self.cfg.eigen_decay)
+        inv = {name: blk.rescale_step(state.inv[name],
+                                      grads[blk.meta.param_path[0]], eps)
+               for name, blk in self.blocks.items()}
+        return state.replace(inv=inv)
 
     def _omega1(self):
         return float(self.cfg.omega1_base ** self.cfg.t1)
@@ -174,7 +206,9 @@ class KFACEngine:
         out = {}
         for name, blk in self.blocks.items():
             (key,) = blk.meta.param_path
-            out[key] = blk.precondition(inv[name], grads_reg[key])
+            out[key] = (blk.precondition_eigen(inv[name], grads_reg[key])
+                        if self.eigen
+                        else blk.precondition(inv[name], grads_reg[key]))
         return T.tree_scale(out, -1.0)
 
     # ------------------------------------------------------------------
@@ -251,6 +285,68 @@ class KFACEngine:
         return new_params, state, metrics
 
     # ------------------------------------------------------------------
+    # fused fixed-lr update chain: precondition + momentum + global clip
+    # ------------------------------------------------------------------
+    def apply_update_fused(self, state: KFACState, params, grads, batch,
+                           rng, *, inv_override=None, gamma_override=None):
+        """The ``use_rescale=False`` path as one stage: per block
+        ``D = −lr·(Ā⁻¹ V G⁻¹) + μ·M`` together with ``Σ D²`` from one
+        ``precond_momentum`` call (the ``update_chain`` kernel on the card),
+        so the clips fold into the parameter apply without re-reading the
+        update.  ``delta0`` keeps the pre-clip velocity.  On T2 sweep steps
+        the caller passes candidate 0's inverses and gamma.
+        Returns (params', state', metrics)."""
+        cfg = self.cfg
+        inv = inv_override if inv_override is not None else state.inv
+        gamma_new = (gamma_override if gamma_override is not None
+                     else state.gamma)
+        alpha = -self._scalar(cfg.fixed_lr)
+        mu = self._scalar(cfg.fixed_momentum)
+        grads_reg = T.tree_axpy(cfg.eta, T.tree_map(torch.Tensor.float, params),
+                                T.tree_map(torch.Tensor.float, grads))
+        vel, sqs = {}, []
+        for name, blk in self.blocks.items():
+            (key,) = blk.meta.param_path
+            vel[key], sq = blk.precond_momentum(
+                inv[name], grads_reg[key], state.delta0[key], alpha, mu,
+                eigen=self.eigen)
+            sqs.append(sq)
+        norm = torch.sqrt(sum(sqs))
+        clip = cfg.kl_clip > 0 or cfg.clip_delta_norm > 0
+        factor = self._scalar(1.0)
+        if cfg.kl_clip > 0:
+            # trust region on the Fisher quadratic of the applied step: vel
+            # carries -lr, so |velᵀ∇| ≈ lr²·ΔᵀFΔ and
+            # ν = min(1, sqrt(kl_clip / |velᵀ∇|))
+            quad = torch.abs(T.tree_dot(vel, grads_reg))
+            factor = factor * torch.clamp(
+                torch.sqrt(cfg.kl_clip / torch.clamp(quad, min=1e-20)),
+                max=1.0)
+        if cfg.clip_delta_norm > 0:
+            factor = factor * torch.clamp(
+                cfg.clip_delta_norm / torch.clamp(norm, min=1e-20), max=1.0)
+        if clip:
+            new_params = {k: p + (factor * vel[k]).to(p.dtype)
+                          for k, p in params.items()}
+            delta_norm = factor * norm
+        else:
+            new_params = {k: p + vel[k].to(p.dtype) for k, p in params.items()}
+            delta_norm = norm
+
+        m_delta = self._scalar(-1.0)
+        state = state.replace(step=state.step + 1, delta0=vel,
+                              m_delta=m_delta, inv=inv, gamma=gamma_new)
+        metrics = {
+            "alpha": self._scalar(cfg.fixed_lr), "mu": mu,
+            "m_delta": m_delta, "gamma": gamma_new, "lam": state.lam,
+            "grad_norm": torch.sqrt(T.tree_sqnorm(grads_reg)),
+            "delta_norm": delta_norm,
+        }
+        if clip:
+            metrics["nu"] = factor       # the applied clip factor (1 = none)
+        return new_params, state, metrics
+
+    # ------------------------------------------------------------------
     # lambda adaptation (S6.5)
     # ------------------------------------------------------------------
     def lambda_step(self, state: KFACState, new_params, batch, rng):
@@ -294,11 +390,24 @@ class KFACPipeline:
     def __init__(self, engine: KFACEngine):
         self.engine = engine
         self._start: Optional[int] = None
+        if engine.cfg.use_rescale:
+            # precondition is fused into the quadratic-model stage: the
+            # M(delta) solve needs every candidate's preconditioned delta
+            update_stage = Stage("precondition+quadratic_model_lr_momentum",
+                                 self._stage_quadratic)
+        else:
+            # fixed-lr path: precondition + momentum + clips as one stage;
+            # on T2 steps the gamma sweep keeps candidate 0
+            update_stage = Stage("fused_precondition_momentum_clip",
+                                 self._stage_fused)
+        # eigen mode re-estimates the EKFAC diagonal every step
+        rescale = ([Stage("eigen_rescale", self._stage_eigen_rescale)]
+                   if engine.eigen else [])
         self.stages = [
             Stage("estimate_stats", self._stage_estimate_stats),
             Stage("scheduled_inverse_refresh", self._stage_refresh),
-            Stage("precondition+quadratic_model_lr_momentum",
-                  self._stage_quadratic),
+            *rescale,
+            update_stage,
             Stage("adapt_lambda", self._stage_adapt_lambda),
         ]
 
@@ -321,6 +430,25 @@ class KFACPipeline:
             ctx.candidates = self.engine.refresh_multi(ctx.state)
         elif ctx.warmup or ctx.step % cfg.t3 == 0:
             ctx.state = self.engine.refresh_inverses(ctx.state, hot=True)
+
+    def _stage_eigen_rescale(self, ctx: StepContext):
+        if ctx.candidates is None:
+            # re-estimated in the (amortized) eigenbases; the sweep step
+            # keeps its fresh states
+            ctx.state = self.engine.rescale_step(ctx.state, ctx.grads)
+
+    def _stage_fused(self, ctx: StepContext):
+        eng = self.engine
+        if ctx.candidates is not None:
+            gs, i3 = ctx.candidates
+            ctx.new_params, ctx.state, um = eng.apply_update_fused(
+                ctx.state, ctx.params, ctx.grads, ctx.batch, ctx.rng,
+                inv_override=T.tree_map(lambda x: x[0], i3),
+                gamma_override=gs[0])
+        else:
+            ctx.new_params, ctx.state, um = eng.apply_update_fused(
+                ctx.state, ctx.params, ctx.grads, ctx.batch, ctx.rng)
+        ctx.metrics.update(um)
 
     def _stage_quadratic(self, ctx: StepContext):
         eng = self.engine

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-three full-width trainer steps.  No JAX: the machine with the card has none.
+three full-width trainer steps on each path (blkdiag, eigen, fused).  No
+JAX: the machine with the card has none.
 
 Every test is marked ``cuda`` and skips, inside its body, when
 ``torch.cuda.is_available()`` is false.  On the card (``--noconftest``:
@@ -9,8 +10,8 @@ Every test is marked ``cuda`` and skips, inside its body, when
         tests/test_torch_cuda.py
 
 Tolerance: max|kernel - plain| <= 1e-4 * max|plain| (fp32 sums over
-K <= 8192 in another order), and 1e-4 * max|alpha * XᵀX| for
-factor_update; TF32 is off.
+K <= 8192 in another order), 1e-4 * max|alpha * XᵀX| for factor_update,
+and relative 1e-4 for the update chain's ΣD²; TF32 is off.
 """
 import math
 
@@ -26,6 +27,14 @@ from repro_torch.kernels.matmul import matmul, matmul_ref
 from repro_torch.kernels.ns_step import (ns_inverse, ns_inverse_ref, ns_step,
                                          ns_step_ref)
 from repro_torch.kernels.precond import precondition, precondition_ref
+from repro_torch.kernels.rotate_rescale import (matmul_rescale,
+                                                matmul_rescale_ref,
+                                                rotate_rescale,
+                                                rotate_rescale_ref)
+from repro_torch.kernels.update_chain import (axpy_momentum,
+                                              axpy_momentum_ref,
+                                              precond_momentum,
+                                              precond_momentum_ref)
 from repro_torch.models.mlp import MLP, autoencoder_dims
 from repro_torch.optimizers.kfac import kfac
 from repro_torch.training.trainer import Trainer
@@ -123,4 +132,133 @@ def test_three_full_width_trainer_steps():
     assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
     assert K.launches() == {"factor_update": 48, "precondition": 24,
                             "ns_step": 3 * 16 * 12,
-                            "matmul": 2 * (24 + 3 * 16 * 12)}
+                            "matmul": 2 * (24 + 3 * 16 * 12),
+                            "matmul_rescale": 0, "rotate_rescale": 0,
+                            "axpy_momentum": 0, "precond_momentum": 0}
+
+
+def test_matmul_transposed_views_on_card():
+    """A transposed (non-row-major) view is copied row-major before the
+    launch and gives the plain product."""
+    g = _card()
+    q = torch.randn(251, 251, generator=g, device="cuda")
+    v = torch.randn(251, 30, generator=g, device="cuda")
+    w = torch.randn(30, 30, generator=g, device="cuda")
+    _close(matmul(q.T, v), matmul_ref(q.T, v))
+    _close(matmul(v, w.T), matmul_ref(v, w.T))
+    _close(matmul(v.T, q.T), matmul_ref(v.T, q.T))
+    b = torch.randn(3, 31, 65, generator=g, device="cuda")
+    _close(matmul(b.transpose(1, 2), b), matmul_ref(b.transpose(1, 2), b))
+
+
+def _eig_operands(g, a, gd):
+    qa = torch.linalg.eigh(_spd(g, a))[1]
+    qg = torch.linalg.eigh(_spd(g, gd))[1]
+    v = torch.randn(a, gd, generator=g, device="cuda")
+    s = torch.rand(a, gd, generator=g, device="cuda") + 0.05
+    return qa, v, qg, s
+
+
+@pytest.mark.parametrize("a,gd", LAYERS)
+def test_rotate_rescale_on_card(a, gd):
+    g = _card()
+    qa, v, qg, s = _eig_operands(g, a, gd)
+    lam = torch.tensor(1e-12, device="cuda")
+    before = (rotate_rescale.launches, matmul_rescale.launches,
+              matmul.launches)
+    got = rotate_rescale(qa, v, qg, s, lam)
+    assert (rotate_rescale.launches, matmul_rescale.launches,
+            matmul.launches) == (before[0] + 1, before[1] + 1, before[2] + 3)
+    _close(got, rotate_rescale_ref(qa, v, qg, s, lam))
+    t = qa.T @ v
+    _close(matmul_rescale(t, qg, s, lam), matmul_rescale_ref(t, qg, s, lam))
+    _close(matmul_rescale(t, qg, s, 0.5), matmul_rescale_ref(t, qg, s, 0.5))
+
+
+def test_matmul_rescale_batched_on_card():
+    g = _card()
+    t = torch.randn(3, 1001, 500, generator=g, device="cuda")
+    q = torch.randn(500, 500, generator=g, device="cuda")
+    s = torch.rand(3, 1001, 500, generator=g, device="cuda") + 0.05
+    lam = torch.tensor(0.1, device="cuda")
+    _close(matmul_rescale(t, q, s, lam), matmul_rescale_ref(t, q, s, lam))
+
+
+@pytest.mark.parametrize("a,gd", LAYERS)
+def test_update_chain_on_card(a, gd):
+    g = _card()
+    ai, gi = _spd(g, a), _spd(g, gd)
+    v, mom = (torch.randn(a, gd, generator=g, device="cuda")
+              for _ in range(2))
+    al, mu = torch.tensor(-0.02, device="cuda"), torch.tensor(0.9,
+                                                              device="cuda")
+    before = (precond_momentum.launches, axpy_momentum.launches)
+    d, sq = precond_momentum(ai, v, gi, mom, alpha=al, mu=mu)
+    assert (precond_momentum.launches, axpy_momentum.launches) == (
+        before[0] + 1, before[1] + 1)
+    d_ref, sq_ref = precond_momentum_ref(ai, v, gi, mom, alpha=al, mu=mu)
+    _close(d, d_ref)
+    assert sq.dim() == 0 and sq.device.type == "cuda"
+    assert abs(sq.item() - sq_ref.item()) <= 1e-4 * sq_ref.item()
+    t = v @ gi
+    d2, sq2 = axpy_momentum(ai, t, mom, -0.05, 0.0)
+    d2_ref, sq2_ref = axpy_momentum_ref(ai, t, mom, -0.05, 0.0)
+    _close(d2, d2_ref)
+    assert abs(sq2.item() - sq2_ref.item()) <= 1e-4 * sq2_ref.item()
+    # no atomics: the sum is the same on every run
+    assert torch.equal(precond_momentum(ai, v, gi, mom, alpha=al, mu=mu)[1],
+                       sq)
+
+
+def test_new_wrappers_raise_on_bad_operands():
+    """A non-f32 or mixed-device call raises; nothing falls back."""
+    g = _card()
+    qa, v, qg, s = _eig_operands(g, 31, 30)
+    al, mu = torch.tensor(-0.02, device="cuda"), torch.tensor(0.9,
+                                                              device="cuda")
+    f64 = lambda t: t.double()
+    cpu = lambda t: t.cpu()
+    for bad in (f64, cpu):
+        with pytest.raises((TypeError, ValueError, RuntimeError)):
+            matmul_rescale(qa, bad(v), s, 0.1)
+        with pytest.raises((TypeError, ValueError, RuntimeError)):
+            rotate_rescale(qa, v, bad(qg), s, 1e-12)
+        with pytest.raises((TypeError, ValueError, RuntimeError)):
+            axpy_momentum(qa, v, bad(s), al, mu)
+        with pytest.raises((TypeError, ValueError, RuntimeError)):
+            precond_momentum(qa, v, qg, bad(s), alpha=al, mu=mu)
+
+
+PATHS = {
+    "eigen": dict(inv_mode="eigen", lambda_init=3.0, t3=5, eta=1e-5),
+    "fused": dict(inv_mode="blkdiag", inverse_method="ns", use_rescale=False,
+                  fixed_lr=0.02, fixed_momentum=0.9, kl_clip=1e-3,
+                  lambda_init=3.0, t3=5, eta=1e-5),
+}
+# 3 steps, every one a warmup refresh: eigen runs rotate_rescale on the 8
+# layers each step; fused runs 16 NS refreshes of 12 steps and the chain
+LAUNCHES = {
+    "eigen": {"factor_update": 48, "precondition": 0, "ns_step": 0,
+              "matmul": 3 * 24, "matmul_rescale": 24, "rotate_rescale": 24,
+              "axpy_momentum": 0, "precond_momentum": 0},
+    "fused": {"factor_update": 48, "precondition": 0,
+              "ns_step": 3 * 16 * 12, "matmul": 2 * 3 * 16 * 12 + 24,
+              "matmul_rescale": 0, "rotate_rescale": 0,
+              "axpy_momentum": 24, "precond_momentum": 24},
+}
+
+
+@pytest.mark.parametrize("path", ["eigen", "fused"])
+def test_three_full_width_steps_eigen_and_fused(path):
+    _card()
+    mlp = MLP(DIMS, device="cuda")
+    params = mlp.init_params(torch.Generator().manual_seed(0))
+    data = SyntheticAutoencoderData(DIMS[0], 8, 8192, seed=7, device="cuda")
+    opt = kfac(mlp, KFACConfig(**PATHS[path]), family="bernoulli",
+               device="cuda")
+    K.reset_launches()
+    out = Trainer(mlp, opt, TrainConfig(seed=0), device="cuda").fit(
+        params, data, steps=3, log=lambda *_: None)
+    losses = [h["loss"] for h in out["history"]]
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    assert K.launches() == LAUNCHES[path]

@@ -162,7 +162,9 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     assert torch.equal(NS.ns_step(m, ai), NS.ns_step_ref(m, ai))
     assert torch.equal(NS.ns_inverse(m, 3), NS.ns_inverse_ref(m, 3))
     assert K.launches() == {"matmul": 0, "factor_update": 0,
-                            "precondition": 0, "ns_step": 0}
+                            "precondition": 0, "ns_step": 0,
+                            "matmul_rescale": 0, "rotate_rescale": 0,
+                            "axpy_momentum": 0, "precond_momentum": 0}
 
 
 def test_factor_update_split_policy():
