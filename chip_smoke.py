@@ -18,16 +18,25 @@ on failure (nothing is caught):
             max|plain| (fp32 sums over K <= 8192); the update chain's ΣD² to
             relative 1e-4.  factor_update is held to 1e-4 * max|alpha * XᵀX|
             instead, at beta = 0 (the first step) and at beta = 0.95, so
-            that beta * C cannot hide an error in the product.  Each is
-            timed beside its plain version and the library calls the port
-            never calls, two ways: device time, replaying a CUDA graph of
-            the launches between CUDA events (``ms``); and eager, CUDA
-            events around back-to-back calls, where the host's issue rate
-            shows for short launches (``eager_ms``).  Also times
-            ``torch.linalg.eigh`` of the 16 factors (the eigen refresh).
+            that beta * C cannot hide an error in the product.  The two
+            decode kernels are held to 1e-5 * max|plain|: every group size
+            G = 1..4 with and without a window and a softcap, then
+            llama3.2-1b's serving shapes (16 rows, Hq 32, Hkv 8, hd 64,
+            ragged lengths 1-4096, a dense bf16 cache and page pools of 8
+            with a shuffled page table).  Each kernel is timed beside its
+            plain version and the library calls the port never calls, two
+            ways: device time, replaying a CUDA graph of the launches
+            between CUDA events (``ms``); and eager, CUDA events around
+            back-to-back calls, where the host's issue rate shows for short
+            launches (``eager_ms``).  Also times ``torch.linalg.eigh`` of
+            the 16 factors (the eigen refresh).
 4. agree    the reduced autoencoder (64-32-16-8 mirrored, N = 256) for 6
             K-FAC steps on the card and on the CPU (plain versions), same
             weights and uniforms, on each path: losses within rtol 1e-3.
+            Reduced smollm-135m and llama3.2-1b served on the card and on
+            the CPU from the same weights: prefill and paged decode logits
+            within 1e-4 * max|cpu logits|, each decode step taken by both
+            from one shared bf16 cache; the engine's greedy tokens equal.
 5. main     ``Trainer.fit`` on the full-width 784-1000-500-250-30 mirrored
             autoencoder, N = 8192 full batch, 25 steps (warmup refreshes,
             T3 refreshes, lambda steps and one gamma sweep), on three paths
@@ -42,15 +51,32 @@ on failure (nothing is caught):
             falling.  On the clipped (fused) path the applied clip factor
             nu of every step must lie in (0, 1] and the applied step's norm
             must be finite and above 0; both are printed per step.
-6. profile  each path twice more: per-stage host times (synchronized), then
-            device time by kernel under ``torch.profiler``.
-7. summary  the ``{"main": ...}`` and ``{"kernels": [...]}`` lines, the
-            nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+6. serve    ``Engine.run`` on full-width llama3.2-1b (16 layers, d 2048,
+            vocab 128256, float32 weights from seed 0, bf16 paged KV cache):
+            32 greedy requests with prompts of 64-1024 tokens, 64 new
+            tokens each, 16 slots, max_len 2048, pages of 8.  Then the
+            first 16 requests through a pool with 16 pages beyond their
+            prompts' (preemptions must happen, and the tokens must equal
+            the first run's), and the first 16 for 4 tokens on the gather
+            route (tokens equal to the paged route's).  Launch counters are
+            zeroed just before each run and read just after: every decode
+            step launches its route's kernel once per layer, and nothing
+            else launches.  Prints the engine's TTFT, decode-step and
+            prefill times, tokens/s, peak memory and the device time of a
+            step's logits copy to the host; then ten decode steps of 16
+            rows under ``torch.profiler``.
+7. profile  each training path twice more: per-stage host times
+            (synchronized), then device time by kernel under
+            ``torch.profiler``.
+8. summary  the ``{"main": ...}``, ``{"serve": ...}`` and ``{"kernels":
+            [...]}`` lines, the nvidia-smi line, and last ``{"ok": true,
+            "device": {...}}``.
 
 Bounds are the larger of fp32 operations over 67 TFLOP/s and bytes over
 3.35 TB/s (H100 SXM data sheet, at a 700 W power limit).  factor_update's
 counts N·d(d+1) operations per side: XᵀX is symmetric, so only its
-d(d+1)/2 distinct entries need a 2N-operation sum each.
+d(d+1)/2 distinct entries need a 2N-operation sum each.  A decode call's
+counts the K/V rows of the valid keys of its lengths, read once.
 """
 from __future__ import annotations
 
@@ -63,6 +89,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -72,6 +99,13 @@ FP32_FLOPS = 67e12         # H100 SXM fp32, no tensor cores
 HBM_BYTES = 3.35e12        # H100 SXM HBM3
 N_ROWS = 8192
 TOL = 1e-4                 # normwise, against max|plain|
+DECODE_TOL = 1e-5          # the decode kernels: float32 sums of <= 4096 keys
+# Serving logits, cuda vs cpu from one shared bf16 cache: each device still
+# rounds the step's own new K/V row to bf16, and a float32 value on a
+# rounding boundary may round the other way (one bf16 ulp, ~0.4% of that
+# entry), which moved reduced smollm's logits by 1.7e-5 of their scale on
+# an H100; held at about six times that.
+SERVE_TOL = 1e-4
 
 
 def smi() -> str:
@@ -145,18 +179,33 @@ def timings(kernel, plain, library, reps: int = 10) -> dict:
     return out
 
 
-def compare(name, got, want, errs, scale=None):
-    """max|got - want| <= TOL * scale, with scale max|want| by default."""
+def compare(name, got, want, errs, scale=None, tol=TOL):
+    """max|got - want| <= tol * scale, with scale max|want| by default."""
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     scale = want.abs().max().item() if scale is None else scale
-    ok = math.isfinite(err) and err <= TOL * scale
+    ok = math.isfinite(err) and err <= tol * scale
     print(f"  {name:48s} max|err| {err:.3e}  scale {scale:.3e}  "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version ({err:.3e} > {TOL} * {scale:.3e})")
+                             f"version ({err:.3e} > {tol} * {scale:.3e})")
     errs.append(err)
+
+
+def device_kernels(prof) -> tuple:
+    """Device busy ms of a ``torch.profiler`` run, and its ten busiest
+    kernels as (device ms, launches, name)."""
+    from torch.autograd import DeviceType
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=dev, reverse=True)
+    top = [(dev(e) / 1e3, e.count, e.key[:120]) for e in kernels[:10]]
+    for ms, n, key in top:
+        print(f"  {ms:9.3f} ms {n:6d}x  {key[:90]}")
+    return sum(dev(e) for e in kernels) / 1e3, top
 
 
 def profile_path(label, mlp, params, data, cfg, steps) -> dict:
@@ -166,7 +215,6 @@ def profile_path(label, mlp, params, data, cfg, steps) -> dict:
     by kernel and the device busy share."""
     import collections
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import TrainConfig
@@ -208,19 +256,316 @@ def profile_path(label, mlp, params, data, cfg, steps) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_ms = fit(kfac(mlp, cfg, family="bernoulli", device="cuda"))
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=dev, reverse=True)
-    busy_ms = sum(dev(e) for e in kernels) / 1e3
     print(f"[profile:{label}] torch.profiler, {steps} steps in "
-          f"{wall_ms:.1f} ms: device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%)")
-    for e in kernels[:12]:
-        print(f"  {dev(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+          f"{wall_ms:.1f} ms; busiest kernels:")
+    busy_ms, _ = device_kernels(prof)
+    print(f"  device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "stage_total_ms": {k: sum(v) for k, v in stage_ms.items()}}
+
+
+# ---------------------------------------------------------------------------
+# serving: the decode kernels, the cuda-vs-cpu agreement, the serve path
+# ---------------------------------------------------------------------------
+
+def decode_bound(lengths, s_len, hq, hkv, hd, page=0) -> tuple:
+    """Least time of one decode call on these lengths (no window): the
+    valid keys' K/V rows read once (bf16), q read and the output written
+    once (float32), the lengths and the page-table entries of the touched
+    pages read once; against 4 operations per (valid key, query head,
+    dim)."""
+    keys = [min(int(n), s_len) for n in lengths.tolist()]
+    nbytes = (2.0 * sum(keys) * hkv * hd * 2 + 2.0 * len(keys) * hq * hd * 4
+              + 4.0 * len(keys))
+    if page:
+        nbytes += 4.0 * sum(-(-n // page) for n in keys)
+    return bound_ms(4.0 * sum(keys) * hq * hd, nbytes)
+
+
+def sdpa(q, k, v, lengths):
+    """The library call: ``scaled_dot_product_attention`` on bf16 q/k/v
+    (B, H, 1, hd) x (B, Hkv, S, hd) with GQA and a (B, 1, 1, S) length
+    mask.  It takes q in bf16 (SDPA wants one dtype), so it is the same
+    function up to q's rounding."""
+    import torch.nn.functional as F
+    pos = torch.arange(k.shape[2], device=q.device)
+    valid = pos[None, :] < lengths[:, None]
+    return F.scaled_dot_product_attention(
+        q.to(torch.bfloat16)[:, :, None], k, v, attn_mask=valid[:, None, None],
+        enable_gqa=True)
+
+
+def decode_kernel_rows(dev, g) -> dict:
+    """Both decode kernels against their plain versions, to 1e-5 of
+    max|plain|.  First small cases: every group size G = 1..4 (hd 64),
+    each with no window and no softcap, a window, a softcap and both.  Then
+    the shapes the serve path gives them, timed beside the plain version
+    and the library call: llama3.2-1b's B = 16 slots, Hq 32, Hkv 8, hd 64,
+    ragged lengths 1-4096, a dense (B, S, Hkv, hd) bf16 cache read through
+    strides, and page pools of 8 with a shuffled page table."""
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_paged,
+                                                  flash_decode_paged_ref,
+                                                  flash_decode_ref,
+                                                  paged_gather)
+    errs = {"flash_decode": [], "flash_decode_paged": []}
+
+    def case(b, hq, hkv, hd, s_len, page):
+        q = torch.randn(b, hq, hd, generator=g, device=dev)
+        lengths = torch.randint(1, s_len + 1, (b,), generator=g, device=dev,
+                                dtype=torch.int32)
+        lengths[0], lengths[-1] = 1, s_len
+        # dense: the LM's (B, S, Hkv, hd) cache, read through strides
+        k, v = (torch.randn(b, s_len, hkv, hd, generator=g, device=dev)
+                .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+        nb = -(-s_len // page)
+        num_pages = 1 + b * nb
+        kp, vp = (torch.randn(num_pages, page, hkv, hd, generator=g,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        table = (torch.randperm(num_pages - 1, generator=g, device=dev)
+                 + 1).reshape(b, nb).to(torch.int32)
+        return q, lengths, k, v, kp, vp, table
+
+    for group in range(1, 5):
+        q, lengths, k, v, kp, vp, table = case(3, 2 * group, 2, 64, 200, 8)
+        for window, cap in ((0, 0.0), (37, 0.0), (0, 30.0), (37, 30.0)):
+            kw = dict(window=window, cap=cap)
+            compare(f"flash_decode G={group} window={window} cap={cap}",
+                    flash_decode(q, k, v, lengths, **kw),
+                    flash_decode_ref(q, k, v, lengths, **kw),
+                    errs["flash_decode"], tol=DECODE_TOL)
+            compare(f"flash_decode_paged G={group} window={window} "
+                    f"cap={cap}",
+                    flash_decode_paged(q, kp, vp, lengths, table, **kw),
+                    flash_decode_paged_ref(q, kp, vp, lengths, table, **kw),
+                    errs["flash_decode_paged"], tol=DECODE_TOL)
+
+    b, hq, hkv, hd, s_len, page = 16, 32, 8, 64, 4096, 8
+    q, lengths, k, v, kp, vp, table = case(b, hq, hkv, hd, s_len, page)
+    compare(f"flash_decode llama3.2-1b B={b} S={s_len}",
+            flash_decode(q, k, v, lengths),
+            flash_decode_ref(q, k, v, lengths), errs["flash_decode"],
+            tol=DECODE_TOL)
+    compare(f"flash_decode_paged llama3.2-1b B={b} page={page}",
+            flash_decode_paged(q, kp, vp, lengths, table),
+            flash_decode_paged_ref(q, kp, vp, lengths, table),
+            errs["flash_decode_paged"], tol=DECODE_TOL)
+
+    def lib_paged():
+        kd, vd = paged_gather(kp, vp, table)
+        return sdpa(q, kd, vd, lengths)
+
+    shape = (f"llama3.2-1b shapes: B={b}, Hq {hq}, Hkv {hkv}, hd {hd}, "
+             f"lengths 1-{s_len}")
+    return {
+        "flash_decode": dict(
+            source="src/repro_torch/csrc/flash_decode.cu",
+            replaces="src/repro/kernels/flash_decode.py:82",
+            unit=f"one attention layer of one decode step at {shape}, dense "
+                 f"(B, S={s_len}, Hkv, hd) bf16 cache",
+            max_abs_err=max(errs["flash_decode"]),
+            **timings(lambda: flash_decode(q, k, v, lengths),
+                      lambda: flash_decode_ref(q, k, v, lengths),
+                      lambda: sdpa(q, k, v, lengths)),
+            library_calls="scaled_dot_product_attention(enable_gqa, "
+                          "length mask), bf16 q",
+            bound=decode_bound(lengths, s_len, hq, hkv, hd)),
+        "flash_decode_paged": dict(
+            source="src/repro_torch/csrc/flash_decode.cu",
+            replaces="src/repro/kernels/flash_decode.py:178",
+            unit=f"one attention layer of one decode step at {shape}, page "
+                 f"pools of {page}, shuffled page table",
+            max_abs_err=max(errs["flash_decode_paged"]),
+            **timings(lambda: flash_decode_paged(q, kp, vp, lengths, table),
+                      lambda: flash_decode_paged_ref(q, kp, vp, lengths,
+                                                     table),
+                      lib_paged),
+            library_calls="paged gather + scaled_dot_product_attention("
+                          "enable_gqa, length mask), bf16 q",
+            bound=decode_bound(lengths, s_len, hq, hkv, hd, page))}
+
+
+def to_device(params, dev):
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda t: t.to(dev), params)
+
+
+def agree_serving(arch) -> dict:
+    """Reduced ``arch`` on the card and on the CPU (plain versions) from the
+    same weights.  Held to ``SERVE_TOL`` · max|cpu logits|: the prefill
+    logits of two prompts, and four paged decode steps' logits, each step
+    taken by both devices from the same bf16 cache (the CPU's, copied to
+    the card before every step; only the step's own new K/V row is
+    rounded to bf16 by each device).  The engine's greedy tokens of 7
+    requests on the card must equal those on the CPU."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.cache import PagedKVCache
+    from repro_torch.serving.server import Engine, Request
+
+    cfg = get_reduced_config(arch)
+    lms = {dev: LM(cfg, device=dev) for dev in ("cpu", "cuda")}
+    params = {"cpu": lms["cpu"].init_params(torch.Generator().manual_seed(0))}
+    params["cuda"] = to_device(params["cpu"], "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (21, 5)]
+    steps = [rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+             for _ in range(4)]
+    kv = PagedKVCache(lms["cpu"], batch_slots=2, max_len=32, page_size=4)
+    table = torch.arange(1, 1 + 2 * kv.max_blocks,
+                         dtype=torch.int32).reshape(2, kv.max_blocks)
+    pools = kv.init_pools()
+    errs = []
+
+    def held(got, want):
+        errs.append((got.cpu() - want).abs().max().item()
+                    / want.abs().max().item())
+
+    for row, prompt in enumerate(prompts):
+        toks = {"tokens": torch.tensor([prompt])}
+        lg_c, cache = lms["cpu"].prefill(params["cpu"], toks)
+        lg_g, _ = lms["cuda"].prefill(params["cuda"], toks)
+        held(lg_g, lg_c)
+        kv.write_prefill(pools, table[row].tolist(), cache, len(prompt))
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    for toks in steps:
+        shared = to_device(pools, "cuda")
+        lg_g, _ = lms["cuda"].decode_step(params["cuda"], shared,
+                                          torch.from_numpy(toks), pos,
+                                          page_table=table)
+        lg_c, pools = lms["cpu"].decode_step(params["cpu"], pools,
+                                             torch.from_numpy(toks), pos,
+                                             page_table=table)
+        held(lg_g, lg_c)
+        pos = pos + 1
+    err = max(errs)
+    spec = [(0, 3, 4), (1, 20, 9), (2, 4, 2), (3, 8, 5), (4, 3, 7),
+            (5, 6, 3), (6, 17, 6)]
+    tokens = {}
+    for dev in ("cuda", "cpu"):
+        reqs = [Request(uid=u, prompt=[(7 * u + j) % cfg.vocab_size
+                                       for j in range(tp)], max_new=mn)
+                for u, tp, mn in spec]
+        Engine(lms[dev], params[dev], batch_slots=3, max_len=32).run(reqs)
+        tokens[dev] = [r.out for r in reqs]
+    same = tokens["cuda"] == tokens["cpu"]
+    print(f"[agree:serve:{arch}] reduced: prefill and 4 paged decode steps "
+          f"from a shared cache, max|cuda - cpu| / max|cpu| logits "
+          f"{err:.3e} (per call: {[f'{e:.2e}' for e in errs]}); greedy "
+          f"tokens of {len(spec)} requests equal: {same}")
+    if not (math.isfinite(err) and err <= SERVE_TOL):
+        raise AssertionError(f"{arch}: cuda logits differ from cpu ({err})")
+    if not same:
+        raise AssertionError(f"{arch}: cuda tokens {tokens['cuda']} vs cpu "
+                             f"{tokens['cpu']}")
+    return {"max_rel_err": err, "rel_errs": errs, "tokens_equal": same}
+
+
+def serve_requests(cfg, lengths, max_new, seed=0):
+    from repro_torch.serving.server import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(n)).tolist(),
+                    max_new=max_new) for i, n in enumerate(lengths)]
+
+
+def serve_run(label, lm, params, reqs, route="paged", **engine_kw):
+    """One ``Engine.run`` with the launch counters zeroed just before and
+    read just after: every decode step must launch the route's kernel once
+    per layer, and nothing else may launch.  Times are the engine's own
+    (``RunReport``); tokens/s is over the run's host-clock wall time."""
+    from repro_torch import kernels as K
+    from repro_torch.serving.server import Engine
+
+    eng = Engine(lm, params, decode_route=route, **engine_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rep = eng.run(reqs, max_steps=100_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launches()
+    peak = torch.cuda.max_memory_allocated()
+    kernel = "flash_decode_paged" if route == "paged" else "flash_decode"
+    want = {name: 0 for name in K.WRAPPERS}
+    want[kernel] = lm.cfg.n_layers * rep.decode_steps
+    n_tok = sum(len(r.out) for r in reqs)
+    vocab = lm.cfg.vocab_size
+    ok_tokens = all(r.done and len(r.out) == r.max_new
+                    and all(0 <= t < vocab for t in r.out) for r in reqs)
+    srt = sorted(rep.decode_step_ms)
+    out = {
+        "route": route, "requests": len(reqs),
+        "prompt_lengths": [len(r.prompt) for r in reqs],
+        "max_new": reqs[0].max_new, "wall_s": wall, "tokens": n_tok,
+        "tokens_per_s": n_tok / wall, "decode_steps": rep.decode_steps,
+        "decode_step_ms_median": srt[len(srt) // 2],
+        "decode_step_ms_min": srt[0], "decode_step_ms_max": srt[-1],
+        "prefills": len(rep.prefill_ms), "prefill_ms_total":
+            sum(rep.prefill_ms),
+        "ttft_p50_ms": rep.ttft_p50_ms, "ttft_p99_ms": rep.ttft_p99_ms,
+        "token_gap_p50_ms": rep.decode_p50_ms,
+        "token_gap_p99_ms": rep.decode_p99_ms,
+        "preemptions": rep.preemptions, "evicted_pages": rep.evictions,
+        "num_pages": eng.kv.num_pages, "peak_mem_bytes": peak,
+        "resident_bytes_before": resident, "launches": launches}
+    print(f"[serve:{label}] {len(reqs)} requests, {route} route: "
+          f"{rep.decode_steps} decode steps in {wall:.3f} s, {n_tok} tokens, "
+          f"{out['tokens_per_s']:.1f} tokens/s")
+    print(f"  decode step ms (host clock, ends in the logits copy): median "
+          f"{out['decode_step_ms_median']:.3f}, min {srt[0]:.3f}, max "
+          f"{srt[-1]:.3f}; {len(rep.prefill_ms)} prefills "
+          f"{sum(rep.prefill_ms):.1f} ms in all")
+    print(f"  TTFT p50 {rep.ttft_p50_ms:.1f} ms, p99 {rep.ttft_p99_ms:.1f} "
+          f"ms; token gap p50 {rep.decode_p50_ms:.3f} ms, p99 "
+          f"{rep.decode_p99_ms:.3f} ms; preemptions {rep.preemptions}, "
+          f"evicted pages {rep.evictions} of {eng.kv.num_pages}; peak "
+          f"memory {peak / 2 ** 20:.1f} MiB ({resident / 2 ** 20:.1f} MiB "
+          f"before the run)")
+    print(f"  launches: {launches}")
+    if not ok_tokens:
+        raise AssertionError(f"{label}: a request did not finish with "
+                             f"max_new tokens in the vocabulary")
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches}, expected "
+                             f"{want}")
+    return out, [list(r.out) for r in reqs]
+
+
+def profile_serving(lm, params, reqs, **engine_kw) -> dict:
+    """Where a decode step's time goes: the requests admitted by one
+    ``step_once`` (their prefills), then ten ``step_once`` calls, each one
+    batched decode step plus sampling, under ``torch.profiler``: device
+    busy share and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.server import Engine
+
+    eng = Engine(lm, params, **engine_kw)
+    for r in reqs:
+        eng.submit(r)
+    eng.step_once()
+    if eng.sched.queue:
+        raise AssertionError("profile: not every request was admitted")
+    steps = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step_once()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[profile:serve] {steps} decode steps of {len(reqs)} rows in "
+          f"{wall_ms:.1f} ms under torch.profiler ({wall_ms / steps:.3f} ms "
+          f"a step); busiest kernels:")
+    busy_ms, top = device_kernels(prof)
+    print(f"  device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+    return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "top_kernels": top}
 
 
 def main() -> None:
@@ -527,6 +872,9 @@ def main() -> None:
     print(f"  torch.linalg.eigh of the 16 factor sides (one eigen refresh): "
           f"{eigh_ms:.3f} ms eager")
 
+    # flash_decode / flash_decode_paged at the serve path's shapes
+    rows.update(decode_kernel_rows(dev, g))
+
     print("  device time (CUDA graph replay); eager (back-to-back calls) in "
           "brackets")
     for name, r in rows.items():
@@ -540,6 +888,8 @@ def main() -> None:
           f"computes it: {rows['factor_update']['full_product_bound_ms']:.4f}"
           f" ms")
 
+    print(f"[time] kernels phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     # ---- 4. agreement with the plain path on a small input -----------
     base = dict(lambda_init=3.0, t3=5, eta=1e-5)
     paths = {
@@ -574,7 +924,11 @@ def main() -> None:
             if not abs(a - b) <= 1e-3 * abs(b):
                 raise AssertionError(f"{label}: cuda path {a} vs cpu path "
                                      f"{b}")
+    serve_agree = {arch: agree_serving(arch)
+                   for arch in ("smollm-135m", "llama3.2-1b")}
 
+    print(f"[time] agree phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     # ---- 5. the main paths -------------------------------------------
     steps = 25
     mlp = MLP(dims, device="cuda")
@@ -671,16 +1025,76 @@ def main() -> None:
             "losses": losses, "launches": launches,
             **({"nu": nus, "delta_norm": norms} if clipped else {})}
 
-    # ---- 6. where the time goes --------------------------------------
+    print(f"[time] main phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    # ---- 6. the serve path -------------------------------------------
+    # full-width llama3.2-1b, the port's own weights from seed 0: 32
+    # greedy requests, prompts of 64..1024 tokens (all lengths distinct, so
+    # every prefill is a group of one), 64 new tokens each, through 16
+    # slots.  Every run keeps 16 slots: a row's decode arithmetic then has
+    # the same shapes in every run, so its tokens must be equal bit for bit.
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+
+    t_serve = time.perf_counter()
+    serve_out = {}
+    cfg = get_config("llama3.2-1b")
+    lm = LM(cfg, device="cuda")
+    lparams = lm.init_params(torch.Generator(device="cuda").manual_seed(0))
+    lengths = np.random.default_rng(0).permutation(
+        np.linspace(64, 1024, 32).astype(int))
+    kw = dict(batch_slots=16, max_len=2048, page_size=8)
+    serve_run("llama3.2-1b warmup", lm, lparams,
+              serve_requests(cfg, [64, 100], 2, seed=9), **kw)
+    serve_out["main"], tokens = serve_run(
+        "llama3.2-1b", lm, lparams, serve_requests(cfg, lengths, 64), **kw)
+    # the first 16 requests through a pool that holds their prompts and 16
+    # pages more: each needs 8 more pages for its 64 tokens, so decode
+    # growth must preempt
+    first = serve_requests(cfg, lengths, 64)[:16]
+    pages = 1 + sum(-(-len(r.prompt) // 8) for r in first) + 16
+    serve_out["pressure"], tokens_p = serve_run(
+        "llama3.2-1b pressure", lm, lparams, first, num_pages=pages, **kw)
+    if serve_out["pressure"]["preemptions"] <= 0:
+        raise AssertionError("pressure run: no preemption")
+    if tokens_p != tokens[:16]:
+        raise AssertionError("pressure run: tokens differ from the "
+                             "unpressured run's")
+    # a few steps on the gather route: the first 16 requests, 4 tokens each
+    serve_out["gather"], tokens_g = serve_run(
+        "llama3.2-1b gather", lm, lparams,
+        serve_requests(cfg, lengths, 4)[:16], route="gather", **kw)
+    if tokens_g != [t[:4] for t in tokens[:16]]:
+        raise AssertionError("gather route: tokens differ from the paged "
+                             "route's")
+    logits = torch.randn(16, cfg.vocab_size, device="cuda")
+    serve_out["logits_host_copy_ms"] = eager_ms(logits.cpu, reps=20)
+    del logits
+    print(f"  logits host copy (16, {cfg.vocab_size}) float32, pageable: "
+          f"{serve_out['logits_host_copy_ms']:.3f} ms (CUDA events)")
+    serve_out["n_params"] = lm.n_params()
+    serve_out["profile"] = profile_serving(
+        lm, lparams, serve_requests(cfg, lengths, 64)[:16], **kw)
+    del lparams
+    torch.cuda.empty_cache()
+    serve_out["phase_s"] = time.perf_counter() - t_serve
+
+    print(f"[time] serve phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    # ---- 7. where the time goes --------------------------------------
     for label, cfg in paths.items():
         profiles[label] = profile_path(label, mlp, params, data, cfg, steps)
         main_out[label]["profile"] = profiles[label]
 
-    # ---- 7. summary --------------------------------------------------
+    print(f"[time] profile phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    # ---- 8. summary --------------------------------------------------
+    launches_by_path["serve"] = serve_out["main"]["launches"]
+    launches_by_path["serve_gather"] = serve_out["gather"]["launches"]
     kernels = []
     for name in ("matmul", "factor_update", "precondition", "ns_step",
                  "matmul_rescale", "rotate_rescale", "axpy_momentum",
-                 "precond_momentum"):
+                 "precond_momentum", "flash_decode", "flash_decode_paged"):
         r = rows[name]
         by_path = {label: n[name] for label, n in launches_by_path.items()}
         if not any(by_path.values()):
@@ -696,6 +1110,7 @@ def main() -> None:
             "eager_ms": r["eager_ms"], "unit": r["unit"]})
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"main": main_out, "eigh_16_factors_eager_ms": eigh_ms}))
+    print(json.dumps({"serve": serve_out, "serve_agree": serve_agree}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

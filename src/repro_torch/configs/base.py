@@ -1,4 +1,4 @@
-"""K-FAC and training configs (mirrors ``repro/configs/base.py``).
+"""Model, K-FAC and training configs (mirrors ``repro/configs/base.py``).
 
 Field names and defaults match the reference for every field this port
 reads.  A field that selects a mode the port does not have yet raises
@@ -9,11 +9,107 @@ the Pallas kernels and tuned Pallas tiles on a TPU.  The port chooses by
 device instead: on a CUDA tensor the hand-written kernels run, on a CPU
 tensor their plain PyTorch versions.  ``obs`` (telemetry) and the mesh
 fields wait for later slices.
+
+:class:`ModelConfig` (the LM architectures) is mirrored field for field;
+which families the port's LM runs is decided by ``models/lm.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description (transformer backbone families).
+
+    ``family`` is one of: dense | moe | hybrid | ssm | vlm | audio.
+    """
+
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+
+    # --- attention variants ---
+    attn_free: bool = False           # rwkv6: no attention at all
+    sliding_window: int = 0           # gemma2: local window size for odd layers
+    alt_local_global: bool = False    # gemma2: alternate local/global attention
+    logit_softcap: float = 0.0        # gemma2 final-logit soft cap
+    attn_softcap: float = 0.0         # gemma2 attention-score soft cap
+    rope_theta: float = 10_000.0
+    use_qk_norm: bool = False
+
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1                # MoE layer every N layers (others dense)
+    moe_shared_expert: bool = False   # llama4-style shared expert alongside routed
+
+    # --- hybrid (jamba) / ssm ---
+    attn_every: int = 0               # jamba: 1 attention layer per this many
+    ssm_state_dim: int = 16
+    ssm_conv_dim: int = 4
+    ssm_expand: int = 2
+
+    # --- rwkv6 ---
+    rwkv_head_dim: int = 64
+
+    # --- encoder-decoder (whisper) ---
+    encoder_layers: int = 0           # >0 -> enc-dec; n_layers = decoder layers
+    encoder_seq: int = 1500           # number of (stubbed) audio frames
+
+    # --- modality frontends (real conv stems, KFC-preconditioned) ---
+    frontend: str = "none"            # none | patch | audio
+    frontend_tokens: int = 0          # patch/frame token count after the stem
+    n_mels: int = 80                  # audio: log-mel channels into the
+                                      # Conv1D stem (k=3 s=1, then k=3 s=2)
+    image_size: int = 0               # patch: square input image side
+    patch_size: int = 0               # patch: Conv2D patchifier kernel=stride
+    image_channels: int = 3           # patch: input image channels
+
+    # --- misc ---
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    max_seq: int = 540_672
+
+    # which shapes this arch supports (subset of SHAPES keys)
+    skip_shapes: Tuple[str, ...] = ()
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.hd
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.hd
+
+    def is_moe_layer(self, i: int) -> bool:
+        if self.n_experts == 0:
+            return False
+        return (i % self.moe_every) == (self.moe_every - 1)
+
+    def is_attn_layer(self, i: int) -> bool:
+        """For hybrid archs, whether layer i is attention (else Mamba)."""
+        if self.attn_free:
+            return False
+        if self.attn_every <= 1:
+            return True
+        # jamba: one attention layer per `attn_every` block, in the middle
+        return (i % self.attn_every) == (self.attn_every // 2)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
 
 # field -> the values this port supports so far
 _PORTED_ONLY = {

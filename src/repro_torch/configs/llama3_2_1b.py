@@ -1,0 +1,25 @@
+"""llama3.2-1b [dense]: small llama3.  [hf:meta-llama/Llama-3.2-1B; unverified]
+Mirrors ``repro/configs/llama3_2_1b.py``."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b",
+    family="dense",
+    n_layers=16,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=128256,
+    rope_theta=500_000.0,
+    tie_embeddings=True,
+    skip_shapes=("long_500k",),
+)
+
+
+def reduced() -> ModelConfig:
+    return CONFIG.replace(
+        name="llama3.2-1b-reduced", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256,
+    )

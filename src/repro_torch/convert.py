@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.transform import KFACState
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_map
 
 
 def _tensor(x, device):
@@ -20,9 +21,7 @@ def _tensor(x, device):
 
 
 def _tree(x, device):
-    if isinstance(x, Mapping):
-        return {k: _tree(v, device) for k, v in x.items()}
-    return None if x is None else _tensor(x, device)
+    return tree_map(lambda a: _tensor(a, device), x)
 
 
 def params_from_numpy(params: Dict[str, np.ndarray],
@@ -30,6 +29,15 @@ def params_from_numpy(params: Dict[str, np.ndarray],
     """``{"W0": array, ...}`` -> the same dict of float32 tensors."""
     device = resolve_device(device)
     return {k: _tensor(v, device).float() for k, v in params.items()}
+
+
+def lm_params_from_numpy(params, device="cuda"):
+    """The reference's ``LM.init_params`` tree as numpy (``jax.tree.map(
+    np.asarray, params)``: dicts, the ``blocks`` tuple with its leading
+    ``n_groups`` dim on every leaf) -> the same tree of float32 tensors,
+    the layout ``repro_torch.models.lm.LM`` reads."""
+    device = resolve_device(device)
+    return tree_map(lambda x: _tensor(x, device).float(), params)
 
 
 def state_from_numpy(state: Mapping[str, Any], device="cuda") -> KFACState:

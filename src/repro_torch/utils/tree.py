@@ -1,8 +1,9 @@
 """Dict-of-tensor helpers (the port's counterpart of ``repro/utils/tree.py``).
 
-A "tree" here is a tensor, ``None``, or a dict of trees — the shapes the
-engine handles: parameter dicts ``{"W0": ...}`` and per-block inverse dicts
-``{"layer0": {"a_inv": ..., "g_inv": ...}}``.
+A "tree" here is a tensor, ``None``, or a dict, tuple or list of trees —
+the shapes the port handles: parameter dicts ``{"W0": ...}``, per-block
+inverse dicts ``{"layer0": {"a_inv": ..., "g_inv": ...}}`` and the LM's
+parameters with their ``blocks`` tuple.
 """
 from __future__ import annotations
 
@@ -13,6 +14,9 @@ def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over trees of identical structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
+                          for i, x in enumerate(tree))
     if tree is None:
         return None
     return fn(tree, *rest)
@@ -21,6 +25,8 @@ def tree_map(fn, tree, *rest):
 def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in tree for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for sub in tree for x in tree_leaves(sub)]
     return [] if tree is None else [tree]
 
 

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card, against their plain versions, and
-three full-width trainer steps on each path (blkdiag, eigen, fused).  No
-JAX: the machine with the card has none.
+"""The port's CUDA kernels on the card, against their plain versions,
+three full-width trainer steps on each path (blkdiag, eigen, fused), and a
+reduced serving run on each decode route.  No JAX: the machine with the
+card has none.
 
 Every test is marked ``cuda`` and skips, inside its body, when
 ``torch.cuda.is_available()`` is false.  On the card (``--noconftest``:
@@ -11,7 +12,8 @@ Every test is marked ``cuda`` and skips, inside its body, when
 
 Tolerance: max|kernel - plain| <= 1e-4 * max|plain| (fp32 sums over
 K <= 8192 in another order), 1e-4 * max|alpha * XᵀX| for factor_update,
-and relative 1e-4 for the update chain's ΣD²; TF32 is off.
+relative 1e-4 for the update chain's ΣD², and 1e-5 * max|plain| for the
+decode kernels (fp32 sums over <= 8192 keys); TF32 is off.
 """
 import math
 
@@ -19,9 +21,11 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.configs import get_reduced_config
 from repro_torch.configs.autoencoder import CONFIG
 from repro_torch.configs.base import KFACConfig, TrainConfig
 from repro_torch.data.pipeline import SyntheticAutoencoderData
+from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels.factor_update import factor_update, factor_update_ref
 from repro_torch.kernels.matmul import matmul, matmul_ref
 from repro_torch.kernels.ns_step import (ns_inverse, ns_inverse_ref, ns_step,
@@ -35,9 +39,12 @@ from repro_torch.kernels.update_chain import (axpy_momentum,
                                               axpy_momentum_ref,
                                               precond_momentum,
                                               precond_momentum_ref)
+from repro_torch.models.lm import LM
 from repro_torch.models.mlp import MLP, autoencoder_dims
 from repro_torch.optimizers.kfac import kfac
+from repro_torch.serving.server import Engine, Request
 from repro_torch.training.trainer import Trainer
+from repro_torch.utils.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -53,11 +60,11 @@ def _card():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _close(got, want, scale=None):
+def _close(got, want, scale=None, tol=1e-4):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     scale = want.abs().max().item() if scale is None else scale
-    assert math.isfinite(err) and err <= 1e-4 * scale, (err, scale)
+    assert math.isfinite(err) and err <= tol * scale, (err, scale)
 
 
 def _spd(g, d, n=512):
@@ -134,7 +141,8 @@ def test_three_full_width_trainer_steps():
                             "ns_step": 3 * 16 * 12,
                             "matmul": 2 * (24 + 3 * 16 * 12),
                             "matmul_rescale": 0, "rotate_rescale": 0,
-                            "axpy_momentum": 0, "precond_momentum": 0}
+                            "axpy_momentum": 0, "precond_momentum": 0,
+                            "flash_decode": 0, "flash_decode_paged": 0}
 
 
 def test_matmul_transposed_views_on_card():
@@ -240,11 +248,13 @@ PATHS = {
 LAUNCHES = {
     "eigen": {"factor_update": 48, "precondition": 0, "ns_step": 0,
               "matmul": 3 * 24, "matmul_rescale": 24, "rotate_rescale": 24,
-              "axpy_momentum": 0, "precond_momentum": 0},
+              "axpy_momentum": 0, "precond_momentum": 0,
+              "flash_decode": 0, "flash_decode_paged": 0},
     "fused": {"factor_update": 48, "precondition": 0,
               "ns_step": 3 * 16 * 12, "matmul": 2 * 3 * 16 * 12 + 24,
               "matmul_rescale": 0, "rotate_rescale": 0,
-              "axpy_momentum": 24, "precond_momentum": 24},
+              "axpy_momentum": 24, "precond_momentum": 24,
+              "flash_decode": 0, "flash_decode_paged": 0},
 }
 
 
@@ -262,3 +272,153 @@ def test_three_full_width_steps_eigen_and_fused(path):
     losses = [h["loss"] for h in out["history"]]
     assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
     assert K.launches() == LAUNCHES[path]
+
+
+# ---------------------------------------------------------------------------
+# serving: the flash-decode kernels and a reduced serving run
+# ---------------------------------------------------------------------------
+
+DECODE_TOL = 1e-5
+# (B, Hq, Hkv, hd, S, window, cap): reduced smollm-135m and llama3.2-1b,
+# full llama3.2-1b and smollm-135m, and a window and softcap at hd 256
+DECODE_SHAPES = [(3, 3, 1, 16, 40, 0, 0.0), (3, 4, 2, 16, 40, 16, 50.0),
+                 (16, 32, 8, 64, 4096, 0, 0.0), (4, 9, 3, 64, 300, 0, 0.0),
+                 (4, 8, 4, 256, 2048, 700, 50.0)]
+
+
+def _decode_case(g, b, hq, hkv, hd, s_len):
+    q = torch.randn(b, hq, hd, generator=g, device="cuda")
+    k, v = (torch.randn(b, s_len, hkv, hd, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    lengths = torch.randint(1, s_len + 1, (b,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    lengths[0] = 1
+    lengths[-1] = s_len
+    return q, k, v, lengths
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_flash_decode_on_card(shape):
+    """The dense kernel reads the (B, S, Hkv, hd) cache through strides."""
+    b, hq, hkv, hd, s_len, window, cap = shape
+    g = _card()
+    q, k, v, lengths = _decode_case(g, b, hq, hkv, hd, s_len)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    before = FD.flash_decode.launches
+    got = FD.flash_decode(q, kt, vt, lengths, window=window, cap=cap)
+    assert FD.flash_decode.launches == before + 1
+    _close(got, FD.flash_decode_ref(q, kt, vt, lengths, window=window,
+                                    cap=cap), tol=DECODE_TOL)
+    # rows with no valid key mirror the reference's uniform weights
+    bad = torch.zeros_like(lengths)
+    _close(FD.flash_decode(q, kt, vt, bad),
+           FD.flash_decode_ref(q, kt, vt, bad), tol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("page", [4, 8, 16])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_flash_decode_paged_on_card(shape, page):
+    b, hq, hkv, hd, s_len, window, cap = shape
+    g = _card()
+    nb = -(-s_len // page)
+    num_pages = 1 + b * nb
+    q = torch.randn(b, hq, hd, generator=g, device="cuda")
+    kp, vp = (torch.randn(num_pages, page, hkv, hd, generator=g,
+                          device="cuda").to(torch.bfloat16) for _ in range(2))
+    table = (torch.randperm(num_pages - 1, generator=g, device="cuda")
+             + 1).reshape(b, nb).to(torch.int32)
+    lengths = torch.randint(1, nb * page + 1, (b,), generator=g,
+                            device="cuda", dtype=torch.int32)
+    lengths[0] = page + 1
+    # an idle row: null page 0 everywhere, length 1
+    table[-1] = 0
+    lengths[-1] = 1
+    before = FD.flash_decode_paged.launches
+    got = FD.flash_decode_paged(q, kp, vp, lengths, table, window=window,
+                                cap=cap)
+    assert FD.flash_decode_paged.launches == before + 1
+    _close(got, FD.flash_decode_paged_ref(q, kp, vp, lengths, table,
+                                          window=window, cap=cap),
+           tol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("group", range(1, 1 + FD.MAX_GROUP))
+def test_decode_kernels_every_group_size_on_card(group):
+    """Every query-heads-per-KV-head instantiation G = 1..4 of both kernels
+    (hd 32 and 128), with a window and a softcap."""
+    g = _card()
+    for hd in (32, 128):
+        b, hkv, s_len, page = 3, 2, 72, 8
+        q, k, v, lengths = _decode_case(g, b, group * hkv, hkv, hd, s_len)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        kw = dict(window=20, cap=30.0)
+        _close(FD.flash_decode(q, kt, vt, lengths, **kw),
+               FD.flash_decode_ref(q, kt, vt, lengths, **kw), tol=DECODE_TOL)
+        pool_k = k.reshape(b * s_len // page, page, hkv, hd)
+        pool_v = v.reshape(b * s_len // page, page, hkv, hd)
+        table = torch.arange(b * s_len // page, device="cuda",
+                             dtype=torch.int32).reshape(b, -1).flip(1)
+        _close(FD.flash_decode_paged(q, pool_k, pool_v, lengths, table, **kw),
+               FD.flash_decode_paged_ref(q, pool_k, pool_v, lengths, table,
+                                         **kw), tol=DECODE_TOL)
+
+
+def test_decode_wrappers_raise_on_bad_operands():
+    g = _card()
+    q, k, v, lengths = _decode_case(g, 2, 4, 2, 16, 32)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    pool = k.reshape(8, 8, 2, 16)
+    table = torch.arange(8, device="cuda", dtype=torch.int32).reshape(2, 4)
+    bad_calls = [
+        lambda: FD.flash_decode(q.double(), kt, vt, lengths),
+        lambda: FD.flash_decode(q, kt.float(), vt.float(), lengths),
+        lambda: FD.flash_decode(q, kt, vt, lengths.long()),
+        lambda: FD.flash_decode(q, kt.cpu(), vt.cpu(), lengths),
+        lambda: FD.flash_decode(q[:, :3], kt, vt, lengths),   # group 1.5
+        lambda: FD.flash_decode(q.repeat(1, 3, 1), kt, vt, lengths),  # 6
+        lambda: FD.flash_decode_paged(q, pool, pool, lengths, table.cpu()),
+        lambda: FD.flash_decode_paged(q, pool, pool, lengths, table.long()),
+        lambda: FD.flash_decode_paged(q, pool.float(), pool.float(), lengths,
+                                      table),
+        lambda: FD.flash_decode_paged(q, pool.transpose(0, 1),
+                                      pool.transpose(0, 1), lengths, table),
+    ]
+    before = (FD.flash_decode.launches, FD.flash_decode_paged.launches)
+    for call in bad_calls:
+        with pytest.raises((TypeError, ValueError)):
+            call()
+    assert (FD.flash_decode.launches, FD.flash_decode_paged.launches) == before
+
+
+@pytest.mark.parametrize("route", ["paged", "gather"])
+def test_reduced_serving_run_on_card(route):
+    """Reduced llama3.2-1b served on the card through a small page pool
+    (preemptions happen): every decode step launches its route's kernel
+    once per layer and nothing else; the tokens equal the CPU run's from
+    the same weights."""
+    _card()
+    cfg = get_reduced_config("llama3.2-1b")
+    cpu_lm = LM(cfg, device="cpu")
+    params = cpu_lm.init_params(torch.Generator().manual_seed(0))
+    spec = [(0, 3, 4), (1, 20, 9), (2, 4, 2), (3, 8, 5), (4, 3, 7)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        lm = LM(cfg, device=dev)
+        p = tree_map(lambda t: t.to(dev), params)
+        reqs = [Request(uid=u, prompt=[(7 * u + j) % cfg.vocab_size
+                                       for j in range(tp)], max_new=mn)
+                for u, tp, mn in spec]
+        eng = Engine(lm, p, batch_slots=3, max_len=32, page_size=4,
+                     num_pages=9, decode_route=route)
+        K.reset_launches()
+        rep = eng.run(reqs, max_steps=500)
+        launches = K.launches()
+        assert all(r.done for r in reqs) and rep.decode_steps > 0
+        if dev == "cuda":
+            want = {name: 0 for name in K.WRAPPERS}
+            want["flash_decode_paged" if route == "paged"
+                 else "flash_decode"] = 2 * rep.decode_steps
+            assert launches == want, (launches, rep.decode_steps)
+            assert rep.preemptions > 0
+        out[dev] = [r.out for r in reqs]
+    assert out["cuda"] == out["cpu"]

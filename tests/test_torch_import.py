@@ -62,3 +62,25 @@ def test_entry_points_refuse_cuda_without_a_card():
         kfac(mlp, KFACConfig(), family="bernoulli")
     with pytest.raises(RuntimeError, match="cuda"):
         Trainer(mlp, None, None)
+
+
+def test_serving_entry_points_refuse_cuda_without_a_card():
+    """The LM and the serving launcher default to ``device="cuda"`` and
+    raise without a card; the serving modules are among those
+    ``test_every_module_imports_without_jax`` imports."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    mods = list(_modules())
+    for m in ("repro_torch.serving.engine", "repro_torch.launch.serve",
+              "repro_torch.kernels.flash_decode", "repro_torch.models.lm"):
+        assert m in mods
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    with pytest.raises(RuntimeError, match="cuda"):
+        LM(get_reduced_config("smollm-135m"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--reduced"])
+    rep = serve.main(["--reduced", "--device", "cpu", "--requests", "2",
+                      "--max_new", "3"])
+    assert len(rep.completed) == 2

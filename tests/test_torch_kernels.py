@@ -164,7 +164,8 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     assert K.launches() == {"matmul": 0, "factor_update": 0,
                             "precondition": 0, "ns_step": 0,
                             "matmul_rescale": 0, "rotate_rescale": 0,
-                            "axpy_momentum": 0, "precond_momentum": 0}
+                            "axpy_momentum": 0, "precond_momentum": 0,
+                            "flash_decode": 0, "flash_decode_paged": 0}
 
 
 def test_factor_update_split_policy():
