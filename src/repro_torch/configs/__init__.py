@@ -1,5 +1,6 @@
 """Architecture registry of the port: the ``--arch`` ids it serves so far
-(the llama family; ``repro/configs/__init__.py`` lists all ten)."""
+(the llama family and gemma2; ``repro/configs/__init__.py`` lists all
+ten)."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES: Dict[str, str] = {
     "smollm-135m": "smollm_135m",
     "llama3.2-1b": "llama3_2_1b",
+    "gemma2-2b": "gemma2_2b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

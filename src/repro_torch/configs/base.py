@@ -39,7 +39,8 @@ class ModelConfig:
 
     # --- attention variants ---
     attn_free: bool = False           # rwkv6: no attention at all
-    sliding_window: int = 0           # gemma2: local window size for odd layers
+    sliding_window: int = 0           # gemma2: local window size (the even
+                                      # pattern positions, models/lm.py)
     alt_local_global: bool = False    # gemma2: alternate local/global attention
     logit_softcap: float = 0.0        # gemma2 final-logit soft cap
     attn_softcap: float = 0.0         # gemma2 attention-score soft cap

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the K-FAC and serving paths and their
-wrappers.
+"""Hand-written CUDA kernels of the K-FAC and serving paths (decode and
+prefill attention) and their wrappers.
 
 Each wrapper takes its plain PyTorch version (``*_ref``) only for CPU
 tensors; for CUDA tensors it launches its kernel or raises.  Each carries a
@@ -9,6 +9,7 @@ count their own calls on the card; the ``matmul``, ``matmul_rescale`` and
 ``axpy_momentum`` launches they make count on those wrappers as well).
 """
 from repro_torch.kernels import factor_update as _factor_update
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import flash_decode as _flash_decode
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import ns_step as _ns_step
@@ -25,7 +26,8 @@ WRAPPERS = {"matmul": _matmul.matmul,
             "axpy_momentum": _update_chain.axpy_momentum,
             "precond_momentum": _update_chain.precond_momentum,
             "flash_decode": _flash_decode.flash_decode,
-            "flash_decode_paged": _flash_decode.flash_decode_paged}
+            "flash_decode_paged": _flash_decode.flash_decode_paged,
+            "flash_attention": _flash_attention.flash_attention}
 
 
 def reset_launches() -> None:

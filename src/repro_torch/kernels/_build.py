@@ -52,6 +52,11 @@ _SIGNATURES = {
     # blocks, window, cap, scale, stream
     "repro_flash_decode_paged_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _F, _F, _P],
+    # q, k, v, out, b, hq, hkv, tq, tk, hd, q/kv/out strides (b, h, t),
+    # causal, window, cap, scale, stream
+    "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I,
+                                  _F, _F, _P],
 }
 
 

@@ -1,24 +1,21 @@
 """Shared LM layers: norm, dense, softcap, RoPE, attention (mirrors
 ``repro/models/layers.py``).
 
-Attention is computed in query chunks with a plain per-chunk softmax (each
-chunk sees the full key range), which bounds the score buffer to
-``(B, Hkv, G, chunk, Tk)``.  Prefill attention is plain PyTorch here as it
-is jnp in the reference: no TPU kernel ran on that path.  The reference
-chunks at the largest divisor of ``Tq`` not above 256 (a prime ``Tq`` gives
-chunks of one query); the port takes chunks of 256 and a shorter last one.
-Every query row is computed from the same keys either way, so the chunking
-changes no result beyond the order of float32 sums.
+The prefill's attention (GQA, causal, a sliding window, a score softcap,
+over aligned positions) goes through ``kernels.flash_attention``: the
+hand-written CUDA kernel on the card, and on the CPU its plain version,
+the query-chunked attention of the reference's ``attention``
+(``kernels.flash_attention.flash_attention_ref``).  The JAX prefill runs
+that chunked jnp attention; its Pallas ``flash_attention`` computes the
+same function and is what the port's kernel replaces.
 """
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 
-DEFAULT_Q_CHUNK = 256
-NEG_INF = -1e30
+from repro_torch.kernels.flash_attention import flash_attention
 
 
 def rms_norm(x, scale, eps: float):
@@ -67,44 +64,21 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA + causal + sliding window + softcap), query-chunked
+# Attention (GQA + causal + sliding window + softcap)
 # ---------------------------------------------------------------------------
 
-def _attn_chunk(q, k, v, q_pos, k_pos, *, causal, window, cap):
-    """q: (B, Cq, Hq, hd); k/v: (B, Tk, Hkv, hd); q_pos (Cq,), k_pos (Tk,)."""
-    b, cq, hq, hd = q.shape
-    hkv = k.shape[2]
-    group = hq // hkv
-    qg = q.reshape(b, cq, hkv, group, hd)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k.float()) / math.sqrt(hd)
-    scores = softcap(scores, cap)
-    dq, dk = q_pos[:, None], k_pos[None, :]
-    mask = torch.ones(dq.shape[0], dk.shape[1], dtype=torch.bool,
-                      device=q.device)
-    if causal:
-        mask &= dq >= dk
-    if window:
-        mask &= dq - dk < window
-    scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
-    return out.reshape(b, cq, hq, hd)
-
-
-def attention(q, k, v, *, causal=True, window=0, cap=0.0,
-              q_chunk: int = DEFAULT_Q_CHUNK):
+def attention(q, k, v, *, causal=True, window=0, cap=0.0):
     """Multi-head attention with GQA over aligned positions (prefill:
     q_pos = arange(Tq), k_pos = arange(Tk)).
 
-    q: (B, Tq, Hq, hd);  k, v: (B, Tk, Hkv, hd).  The reference's
-    ``q_offset``/``kv_valid`` arguments served multi-token decode against a
-    cache, which its ``decode_step`` (one token per row) never makes.
+    q: (B, Tq, Hq, hd);  k, v: (B, Tk, Hkv, hd) -> (B, Tq, Hq, hd).  The
+    operands pass to ``kernels.flash_attention`` in its (B, H, T, hd)
+    layout as views; on the card the result's view back is contiguous.
+    The reference's ``q_offset``/``kv_valid`` arguments served multi-token
+    decode against a cache, which its ``decode_step`` (one token per row)
+    never makes.
     """
-    tq = q.shape[1]
-    k_pos = torch.arange(k.shape[1], device=q.device)
-    q_pos = torch.arange(tq, device=q.device)
-    outs = [_attn_chunk(q[:, c0:c0 + q_chunk], k, v, q_pos[c0:c0 + q_chunk],
-                        k_pos, causal=causal, window=window, cap=cap)
-            for c0 in range(0, tq, q_chunk)]
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, window=window,
+                        cap=cap)
+    return o.transpose(1, 2)

@@ -1,14 +1,20 @@
-"""Decoder-only LM for serving (mirrors ``repro/models/lm.py``), the llama
-family: global attention, dense MLP, no softcaps.
+"""Decoder-only LM for serving (mirrors ``repro/models/lm.py``): the dense
+families with global and sliding-window (local) attention, attention and
+logit softcaps and a dense MLP, that is llama and gemma2.
 
 Layers form a repeating *pattern* of block positions.  Parameters of each
 pattern position are stacked over ``n_groups = n_layers / period`` exactly
 as in the reference, which scans over that leading dim; the port loops over
 it.  So the reference's parameter tree crosses over leaf for leaf
-(``repro_torch.convert.lm_params_from_numpy``).
+(``repro_torch.convert.lm_params_from_numpy``).  gemma2 alternates local
+and global layers (period 2): even pattern positions are local, attending
+the last ``sliding_window`` positions, as ``repro/models/lm.py:66`` builds
+the pattern.
 
 Two execution paths share the block code:
-  * ``prefill``      plain forward that also emits the decode cache;
+  * ``prefill``      plain forward that also emits the decode cache; its
+                     attention goes through ``kernels.flash_attention``
+                     (``models/layers.py::attention``);
   * ``decode_step``  one token per row against a cache, at per-row
                      positions, on one of two routes:
       - paged (``page_table`` given): the cache leaves are page pools
@@ -23,10 +29,12 @@ The reference's arrays are immutable; the port writes the new K/V rows into
 the cache tensors *in place* (a copy of a full-width pool per step would
 move gigabytes) and returns the same tensors.
 
-Weights and activations are float32, caches bfloat16 (the new K/V row is
-rounded to nearest even on the write, as XLA rounds).  Local (sliding
-window) layers, attention and logit softcaps, MoE, SSM, RWKV, the encoder
-and the modality frontends raise ``NotImplementedError`` until their slices
+Every attention layer passes its window (``sliding_window`` on local
+layers, 0 on global ones) and ``attn_softcap`` to the prefill attention and
+to both decode kernels; ``logit_softcap`` caps the head's logits.  Weights
+and activations are float32, caches bfloat16 (the new K/V row is rounded to
+nearest even on the write, as XLA rounds).  MoE, SSM, RWKV, the encoder and
+the modality frontends raise ``NotImplementedError`` until their slices
 arrive.  Training (the K-FAC-tagged forward and its loss) comes with the LM
 training slice.
 """
@@ -80,18 +88,16 @@ def build_pattern(cfg: ModelConfig) -> List[BlockSpec]:
 
 
 def _check_ported(cfg: ModelConfig, pattern: List[BlockSpec]) -> None:
-    missing = sorted({s.attn for s in pattern} - {"global"}
+    missing = sorted({s.attn for s in pattern} - {"global", "local"}
                      | {s.mlp for s in pattern} - {"dense"})
     if cfg.encoder_layers or any(s.cross for s in pattern):
         missing.append("encoder/cross-attention")
     if cfg.frontend != "none":
         missing.append(f"{cfg.frontend} frontend")
-    if cfg.attn_softcap or cfg.logit_softcap:
-        missing.append("softcaps")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port's LM "
-            f"runs the llama family: global attention, dense MLP)")
+            f"runs global and local attention with a dense MLP)")
 
 
 def _index(tree, g: int):
@@ -102,8 +108,8 @@ def _index(tree, g: int):
 
 
 class LM:
-    """The llama-family LM.  ``device`` defaults to ``"cuda"`` and raises
-    without a card; pass ``"cpu"`` for the plain PyTorch versions."""
+    """The dense LM (llama, gemma2).  ``device`` defaults to ``"cuda"`` and
+    raises without a card; pass ``"cpu"`` for the plain PyTorch versions."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         self.cfg = cfg
@@ -161,9 +167,10 @@ class LM:
     # ------------------------------------------------------------------
     # block application (shared by prefill / decode)
     # ------------------------------------------------------------------
-    def _attn(self, p, x, positions, *, cache=None, decode_pos=None,
+    def _attn(self, p, x, positions, *, window, cache=None, decode_pos=None,
               build_cache=False, page_table=None):
         cfg = self.cfg
+        cap = cfg.attn_softcap
         bsz, t, _ = x.shape
         hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         q = dense(p["wq"], x).reshape(bsz, t, hq, hd)
@@ -172,7 +179,7 @@ class LM:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         if cache is None:
-            o = attention(q, k, v, causal=True)
+            o = attention(q, k, v, causal=True, window=window, cap=cap)
             return (dense(p["wo"], o.reshape(bsz, t, hq * hd)),
                     {"k": k, "v": v} if build_cache else None)
         # decode, one token per row: write the row's new K/V (rounded to the
@@ -189,14 +196,16 @@ class LM:
                      (decode_pos % page_size).long())
             cache["k"][where], cache["v"][where] = new_k, new_v
             o = flash_decode_paged(q[:, 0], cache["k"], cache["v"],
-                                   decode_pos + 1, page_table)
+                                   decode_pos + 1, page_table, window=window,
+                                   cap=cap)
         else:
             # dense: the kernel reads the (B, S, Hkv, hd) cache through
             # strides, no transpose copy
             where = (torch.arange(bsz, device=x.device), decode_pos.long())
             cache["k"][where], cache["v"][where] = new_k, new_v
             o = flash_decode(q[:, 0], cache["k"].transpose(1, 2),
-                             cache["v"].transpose(1, 2), decode_pos + 1)
+                             cache["v"].transpose(1, 2), decode_pos + 1,
+                             window=window, cap=cap)
         return dense(p["wo"], o.reshape(bsz, t, hq * hd)), cache
 
     def _mlp(self, p, x):
@@ -204,11 +213,12 @@ class LM:
         u = dense(p["wu"], x)
         return dense(p["wd"], F.silu(g) * u)
 
-    def _apply_block(self, p, h, positions, cache=None, decode_pos=None,
+    def _apply_block(self, spec, p, h, positions, cache=None, decode_pos=None,
                      build_cache=False, page_table=None):
         eps = self.cfg.norm_eps
+        window = self.cfg.sliding_window if spec.attn == "local" else 0
         o, kvc = self._attn(p["attn"], rms_norm(h, p["ln1"], eps), positions,
-                            cache=cache, decode_pos=decode_pos,
+                            window=window, cache=cache, decode_pos=decode_pos,
                             build_cache=build_cache, page_table=page_table)
         h = h + o
         h = h + self._mlp(p["mlp"], rms_norm(h, p["ln2"], eps))
@@ -232,14 +242,16 @@ class LM:
         per_group = {f"pos{i}": [] for i in range(self.period)}
         for g in range(self.n_groups):
             for i in range(self.period):
-                h, c = self._apply_block(_index(params["blocks"][i], g), h,
+                h, c = self._apply_block(self.pattern[i],
+                                         _index(params["blocks"][i], g), h,
                                          positions, build_cache=True)
                 per_group[f"pos{i}"].append(c)
         cache = {name: {kv: torch.stack([c[kv] for c in cs])
                         for kv in ("k", "v")}
                  for name, cs in per_group.items()}
         h = rms_norm(h, params["final_ln"], cfg.norm_eps)
-        logits = head_logits(h[:, -1:, :], self.head_weight(params))
+        logits = head_logits(h[:, -1:, :], self.head_weight(params),
+                             cfg.logit_softcap)
         return logits, cache
 
     def decode_step(self, params, cache, tokens, pos, page_table=None):
@@ -262,9 +274,10 @@ class LM:
         for g in range(self.n_groups):
             for i in range(self.period):
                 h, _ = self._apply_block(
-                    _index(params["blocks"][i], g), h, positions,
+                    self.pattern[i], _index(params["blocks"][i], g), h,
+                    positions,
                     cache=_index(cache[f"pos{i}"], g), decode_pos=pos_vec,
                     page_table=page_table)
         h = rms_norm(h, params["final_ln"], cfg.norm_eps)
-        logits = head_logits(h, self.head_weight(params))
+        logits = head_logits(h, self.head_weight(params), cfg.logit_softcap)
         return logits, cache

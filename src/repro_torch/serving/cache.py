@@ -34,14 +34,16 @@ import torch
 
 
 def _check_supported(model) -> None:
-    """The port's engine serves global-attention decoders only (the
-    reference's also takes local layers, which the port has not ported)."""
+    """The engine serves attention decoders with global and local
+    (sliding-window) layers, as the reference's does.  A local layer keeps
+    every page of its row, inside the window or not (the reference frees
+    none either); its kernels attend only the window."""
     cfg = model.cfg
     kinds = sorted({s.attn for s in model.pattern})
-    if (kinds != ["global"] or cfg.encoder_layers
+    if (not set(kinds) <= {"global", "local"} or cfg.encoder_layers
             or any(s.cross for s in model.pattern)):
         raise NotImplementedError(
-            f"paged serving engine supports global-attention decoders; "
+            f"paged serving engine supports global/local-attention decoders; "
             f"{cfg.name} has attn kinds {kinds}"
             + (", encoder/cross-attention" if cfg.encoder_layers else ""))
 

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions,
-three full-width trainer steps on each path (blkdiag, eigen, fused), and a
-reduced serving run on each decode route.  No JAX: the machine with the
-card has none.
+three full-width trainer steps on each path (blkdiag, eigen, fused), a
+reduced llama serving run on each decode route and a reduced gemma2 one.
+No JAX: the machine with the card has none.
 
 Every test is marked ``cuda`` and skips, inside its body, when
 ``torch.cuda.is_available()`` is false.  On the card (``--noconftest``:
@@ -13,7 +13,8 @@ Every test is marked ``cuda`` and skips, inside its body, when
 Tolerance: max|kernel - plain| <= 1e-4 * max|plain| (fp32 sums over
 K <= 8192 in another order), 1e-4 * max|alpha * XᵀX| for factor_update,
 relative 1e-4 for the update chain's ΣD², and 1e-5 * max|plain| for the
-decode kernels (fp32 sums over <= 8192 keys); TF32 is off.
+decode kernels (fp32 sums over <= 8192 keys) and flash_attention; TF32 is
+off.
 """
 import math
 
@@ -25,6 +26,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.configs.autoencoder import CONFIG
 from repro_torch.configs.base import KFACConfig, TrainConfig
 from repro_torch.data.pipeline import SyntheticAutoencoderData
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels.factor_update import factor_update, factor_update_ref
 from repro_torch.kernels.matmul import matmul, matmul_ref
@@ -142,7 +144,8 @@ def test_three_full_width_trainer_steps():
                             "matmul": 2 * (24 + 3 * 16 * 12),
                             "matmul_rescale": 0, "rotate_rescale": 0,
                             "axpy_momentum": 0, "precond_momentum": 0,
-                            "flash_decode": 0, "flash_decode_paged": 0}
+                            "flash_decode": 0, "flash_decode_paged": 0,
+                            "flash_attention": 0}
 
 
 def test_matmul_transposed_views_on_card():
@@ -249,12 +252,14 @@ LAUNCHES = {
     "eigen": {"factor_update": 48, "precondition": 0, "ns_step": 0,
               "matmul": 3 * 24, "matmul_rescale": 24, "rotate_rescale": 24,
               "axpy_momentum": 0, "precond_momentum": 0,
-              "flash_decode": 0, "flash_decode_paged": 0},
+              "flash_decode": 0, "flash_decode_paged": 0,
+              "flash_attention": 0},
     "fused": {"factor_update": 48, "precondition": 0,
               "ns_step": 3 * 16 * 12, "matmul": 2 * 3 * 16 * 12 + 24,
               "matmul_rescale": 0, "rotate_rescale": 0,
               "axpy_momentum": 24, "precond_momentum": 24,
-              "flash_decode": 0, "flash_decode_paged": 0},
+              "flash_decode": 0, "flash_decode_paged": 0,
+              "flash_attention": 0},
 }
 
 
@@ -390,17 +395,27 @@ def test_decode_wrappers_raise_on_bad_operands():
     assert (FD.flash_decode.launches, FD.flash_decode_paged.launches) == before
 
 
+# (arch, requests as (uid, prompt length, max_new)): gemma2-2b's prompts
+# and positions pass its reduced window of 16
+SERVE_SPECS = [("llama3.2-1b", [(0, 3, 4), (1, 20, 9), (2, 4, 2), (3, 8, 5),
+                                (4, 3, 7)]),
+               ("gemma2-2b", [(0, 18, 4), (1, 6, 14), (2, 20, 3), (3, 9, 9),
+                              (4, 17, 6)])]
+
+
 @pytest.mark.parametrize("route", ["paged", "gather"])
-def test_reduced_serving_run_on_card(route):
-    """Reduced llama3.2-1b served on the card through a small page pool
+@pytest.mark.parametrize("arch,spec", SERVE_SPECS,
+                         ids=[arch for arch, _ in SERVE_SPECS])
+def test_reduced_serving_run_on_card(arch, spec, route):
+    """Reduced ``arch`` served on the card through a small page pool
     (preemptions happen): every decode step launches its route's kernel
-    once per layer and nothing else; the tokens equal the CPU run's from
-    the same weights."""
+    once per layer, every prefill call (replays included) flash_attention
+    once per layer, and nothing else launches; the tokens equal the CPU
+    run's from the same weights."""
     _card()
-    cfg = get_reduced_config("llama3.2-1b")
+    cfg = get_reduced_config(arch)
     cpu_lm = LM(cfg, device="cpu")
     params = cpu_lm.init_params(torch.Generator().manual_seed(0))
-    spec = [(0, 3, 4), (1, 20, 9), (2, 4, 2), (3, 8, 5), (4, 3, 7)]
     out = {}
     for dev in ("cuda", "cpu"):
         lm = LM(cfg, device=dev)
@@ -417,8 +432,71 @@ def test_reduced_serving_run_on_card(route):
         if dev == "cuda":
             want = {name: 0 for name in K.WRAPPERS}
             want["flash_decode_paged" if route == "paged"
-                 else "flash_decode"] = 2 * rep.decode_steps
+                 else "flash_decode"] = cfg.n_layers * rep.decode_steps
+            want["flash_attention"] = cfg.n_layers * len(rep.prefill_ms)
             assert launches == want, (launches, rep.decode_steps)
             assert rep.preemptions > 0
         out[dev] = [r.out for r in reqs]
     assert out["cuda"] == out["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# prefill: the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, hd, Tq, Tk, causal, window, cap): every head dim, G = 1..4,
+# ragged lengths, Tk < Tq with a window (rows with no valid key), Tk > Tq
+ATTN_SHAPES = [(2, 4, 2, 16, 21, 21, True, 16, 50.0),
+               (1, 3, 3, 32, 70, 70, False, 0, 0.0),
+               (2, 9, 3, 64, 130, 130, True, 0, 0.0),
+               (1, 8, 2, 128, 77, 77, True, 20, 30.0),
+               (1, 8, 4, 256, 300, 300, True, 64, 50.0),
+               (1, 8, 4, 256, 257, 257, False, 0, 50.0),
+               (2, 4, 1, 64, 90, 30, True, 8, 0.0),
+               (2, 4, 2, 16, 25, 60, True, 0, 20.0)]
+
+
+def _attn_case(g, b, hq, hkv, hd, tq, tk):
+    """q, k, v as the LM passes them: (B, T, H, hd) projections viewed as
+    (B, H, T, hd)."""
+    q = torch.randn(b, tq, hq, hd, generator=g, device="cuda")
+    k, v = (torch.randn(b, tk, hkv, hd, generator=g, device="cuda")
+            for _ in range(2))
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_flash_attention_on_card(shape):
+    b, hq, hkv, hd, tq, tk, causal, window, cap = shape
+    g = _card()
+    q, k, v = _attn_case(g, b, hq, hkv, hd, tq, tk)
+    kw = dict(causal=causal, window=window, cap=cap)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, **kw)
+    assert FA.flash_attention.launches == before + 1
+    assert got.shape == (b, hq, tq, hd) and got.transpose(1, 2).is_contiguous()
+    _close(got, FA.flash_attention_ref(q, k, v, **kw), tol=1e-5)
+    # contiguous (B, H, T, hd) operands give the same result
+    _close(FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              **kw), got, tol=1e-6)
+
+
+def test_flash_attention_wrapper_raises_on_bad_operands():
+    g = _card()
+    q, k, v = _attn_case(g, 1, 4, 2, 64, 40, 40)
+    bad_calls = [
+        lambda: FA.flash_attention(q.double(), k, v),
+        lambda: FA.flash_attention(q, k.to(torch.bfloat16), v),
+        lambda: FA.flash_attention(q, k.cpu(), v.cpu()),
+        lambda: FA.flash_attention(q[:, :3], k, v),              # group 1.5
+        lambda: FA.flash_attention(q[..., :48], k[..., :48], v[..., :48]),
+        lambda: FA.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2]),
+        lambda: FA.flash_attention(q, k, v.contiguous()),        # strides
+        lambda: FA.flash_attention(q, k[:, :, :0], v[:, :, :0]),  # Tk = 0
+        lambda: FA.flash_attention(q, k, v, window=-1),
+    ]
+    before = FA.flash_attention.launches
+    for call in bad_calls:
+        with pytest.raises((TypeError, ValueError)):
+            call()
+    assert FA.flash_attention.launches == before

@@ -25,6 +25,7 @@ from repro.kernels.ns_step import ns_step as j_ns_step
 from repro.kernels.precond import precondition as j_precondition
 from repro_torch import kernels as K
 from repro_torch.kernels import factor_update as FU
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import matmul as MM
 from repro_torch.kernels import ns_step as NS
 from repro_torch.kernels import precond as PC
@@ -161,11 +162,15 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     m = _t(_spd(38, 31))
     assert torch.equal(NS.ns_step(m, ai), NS.ns_step_ref(m, ai))
     assert torch.equal(NS.ns_inverse(m, 3), NS.ns_inverse_ref(m, 3))
+    q, kv = _t(_u(39, 1, 4, 9, 16)), _t(_u(40, 1, 2, 9, 16))
+    assert torch.equal(FA.flash_attention(q, kv, kv, window=4, cap=5.0),
+                       FA.flash_attention_ref(q, kv, kv, window=4, cap=5.0))
     assert K.launches() == {"matmul": 0, "factor_update": 0,
                             "precondition": 0, "ns_step": 0,
                             "matmul_rescale": 0, "rotate_rescale": 0,
                             "axpy_momentum": 0, "precond_momentum": 0,
-                            "flash_decode": 0, "flash_decode_paged": 0}
+                            "flash_decode": 0, "flash_decode_paged": 0,
+                            "flash_attention": 0}
 
 
 def test_factor_update_split_policy():

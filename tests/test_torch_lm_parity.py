@@ -1,8 +1,10 @@
-"""The port's llama-family LM against the JAX package's ``LM``, on the
-reduced smollm-135m and llama3.2-1b, with JAX's ``LM.init_params`` carried
-across by ``repro_torch.convert.lm_params_from_numpy``; and the query-chunked
-prefill ``attention`` (with the window and softcap the later gemma2 slice
-will use) against the reference's ``models.layers.attention``.
+"""The port's LM against the JAX package's ``LM``, on the reduced
+smollm-135m, llama3.2-1b and gemma2-2b (local layers with a window of 16 on
+even pattern positions, attention softcap 50, logit softcap 30), with JAX's
+``LM.init_params`` carried across by
+``repro_torch.convert.lm_params_from_numpy``; and the prefill ``attention``
+(the plain version of ``kernels.flash_attention`` on the CPU, with a window
+and a softcap) against the reference's ``models.layers.attention``.
 
 Tolerances (float32 weights and activations, sums in another order):
 * logits: max|port − JAX| ≤ 1e-5 · max|JAX| over the batch (normwise;
@@ -14,7 +16,9 @@ Tolerances (float32 weights and activations, sums in another order):
 
 Decode runs from one shared bf16 cache (JAX's prefill rounded once), at
 per-row positions, for several steps on both routes: dense (the JAX
-``flash_decode`` oracle route) and paged (``flash_decode_paged``).
+``flash_decode`` oracle route) and paged (``flash_decode_paged``).  The
+prefill's 21 tokens and the decode's last position, 18, lie past gemma2's
+reduced window, so the local layers mask in both.
 """
 import functools
 
@@ -26,12 +30,12 @@ import torch
 
 from repro.configs import get_reduced_config as j_reduced
 from repro.models.lm import LM as JLM
-from repro_torch.configs import get_reduced_config
+from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import lm as tlm
 from repro_torch.models.lm import LM
 
-ARCHS = ["smollm-135m", "llama3.2-1b"]
+ARCHS = ["smollm-135m", "llama3.2-1b", "gemma2-2b"]
 TOL = 1e-5
 PROMPTS = (5, 9, 14)          # per-row prompt lengths
 STEPS = 5                     # decode steps: row 2 ends at position 18
@@ -89,12 +93,11 @@ def test_pattern_and_param_tree_match_jax():
 
 @pytest.mark.parametrize("kw", [
     {"n_experts": 4, "top_k": 2}, {"attn_free": True}, {"attn_every": 2},
-    {"encoder_layers": 2}, {"alt_local_global": True, "sliding_window": 16},
-    {"attn_softcap": 50.0}, {"logit_softcap": 30.0},
+    {"encoder_layers": 2},
     {"frontend": "patch", "image_size": 32, "patch_size": 8}])
 def test_unported_families_raise(kw):
-    """MoE, RWKV, Mamba, the encoder, gemma2's local layers and softcaps and
-    the frontends wait for their slices."""
+    """MoE, RWKV, Mamba, the encoder and the frontends wait for their
+    slices."""
     cfg = get_reduced_config("smollm-135m")
     with pytest.raises(NotImplementedError):
         LM(cfg.replace(**kw), device="cpu")
@@ -121,6 +124,32 @@ def test_prefill_of_a_long_prompt_uses_chunks():
     logits."""
     jl, jp, tl, tp = _pair("llama3.2-1b")
     toks = _tokens(jl.cfg, 1, 1, 263)
+    jlog, _ = jl.prefill(jp, {"tokens": jnp.asarray(toks)})
+    tlog, _ = tl.prefill(tp, {"tokens": torch.from_numpy(toks)})
+    _close(tlog.numpy(), jlog)
+
+
+def test_gemma2_pattern_windows_and_caps():
+    """Even pattern positions are local (``repro/models/lm.py:66``), with
+    the reduced window and both softcaps; the full-width parameter count
+    (2,614,222,080, built as definitions only).  That the window reaches
+    local layers only and the softcaps every layer and the head is what the
+    prefill and decode parity tests hold."""
+    tl = _pair("gemma2-2b")[2]
+    assert [s.attn for s in tl.pattern] == ["local", "global"]
+    cfg = tl.cfg
+    assert (cfg.sliding_window, cfg.attn_softcap, cfg.logit_softcap) == (
+        16, 50.0, 30.0)
+    full = LM(get_config("gemma2-2b"), device="cpu")   # defs, no tensors
+    assert (full.period, full.n_groups) == (2, 13)
+    assert full.n_params() == 2_614_222_080
+
+
+def test_gemma2_prefill_past_the_window_in_chunks():
+    """A 263-token prompt (two query chunks of the plain attention, 16
+    times the reduced window): logits equal JAX's."""
+    jl, jp, tl, tp = _pair("gemma2-2b")
+    toks = _tokens(jl.cfg, 2, 1, 263)
     jlog, _ = jl.prefill(jp, {"tokens": jnp.asarray(toks)})
     tlog, _ = tl.prefill(tp, {"tokens": torch.from_numpy(toks)})
     _close(tlog.numpy(), jlog)
