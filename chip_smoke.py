@@ -39,7 +39,15 @@ on failure (nothing is caught):
             6000-token local and global layers.  Where a softcap is on
             (gemma2), the library call is ``flex_attention`` under
             ``torch.compile`` with a softcap ``score_mod`` and a block mask
-            of the causal, window and length masks.
+            of the causal, window and length masks.  factor_update also
+            batched, as the LM's stacked layers send it ((12, 12000, 768),
+            (12, 512, 3072), (12, 12000, 3072)).  patch_factor is held to
+            1e-4 * max|alpha * P̂ᵀP̂| at beta = 0 and 0.95 on ragged cases
+            (C 13 and 136, t_out 21, taps over t, t < taps, odd-length
+            stride 2, VALID without bias) and at whisper-small's conv
+            stems, x (8, 3000, 80) k 3 s 1 and x (8, 3000, 768) k 3 s 2
+            ("SAME"), and timed there beside its plain version and
+            unfold + addmm.
 4. agree    the reduced autoencoder (64-32-16-8 mirrored, N = 256) for 6
             K-FAC steps on the card and on the CPU (plain versions), same
             weights and uniforms, on each path: losses within rtol 1e-3.
@@ -48,6 +56,9 @@ on failure (nothing is caught):
             decode logits within 1e-4 * max|cpu logits|, each decode step
             taken by both from one shared bf16 cache; the engine's greedy
             tokens equal, or differing only at a proven near tie.
+            Reduced whisper-small, 4 K-FAC steps of the launcher's setup
+            on the card and on the CPU, same weights and uniforms: losses
+            within rtol 1e-3.
 5. main     ``Trainer.fit`` on the full-width 784-1000-500-250-30 mirrored
             autoencoder, N = 8192 full batch, 25 steps (warmup refreshes,
             T3 refreshes, lambda steps and one gamma sweep), on three paths
@@ -83,9 +94,19 @@ on failure (nothing is caught):
             a step's logits copy to the host; then ten decode steps of 16
             rows under ``torch.profiler`` (for gemma2 also the admission's
             prefills).
-7. profile  each training path twice more: per-stage host times
+   whisper  full-width whisper-small (12 + 12 layers, d 768, d_ff 3072,
+            vocab 51865, 80 mels x 3000 frames; 336,471,552 float32
+            parameters from seed 0) through ``launch/train.py``'s ``main``
+            for 10 steps (batch 8, seq 64, lambda_init 10, T3 5, blkdiag
+            ns): exact launch counts (patch_factor twice a step), the loss
+            finite and falling, per-step host times and peak memory.  It
+            runs after serving, so that the serve phase meets the process
+            as it did before this path was ported.
+7. profile  each autoencoder path twice more: per-stage host times
             (synchronized), then device time by kernel under
-            ``torch.profiler``.
+            ``torch.profiler``; whisper's steps 3 and 4 of another run
+            under ``torch.profiler``.  The profiles come last, so that no
+            profiled window precedes a timed path.
 8. summary  the ``{"main": ...}``, ``{"serve": ...}`` and ``{"kernels":
             [...]}`` lines, the nvidia-smi line, and last ``{"ok": true,
             "device": {...}}``.
@@ -140,6 +161,21 @@ def smi() -> str:
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def timed(opt, step_ms: list):
+    """``opt`` with each update's time in ms appended to ``step_ms``: the
+    host clock between synchronizes just before and just after
+    ``opt.update`` (the step time of every training path here)."""
+    def update(*args, _update=opt.update):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _update(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return dataclasses.replace(opt, update=update)
 
 
 def eager_ms(fn, reps: int = 10) -> float:
@@ -626,6 +662,246 @@ def attention_kernel_row(dev, g) -> dict:
         cases=cases)
 
 
+# ---------------------------------------------------------------------------
+# whisper's K-FAC training: patch_factor, the cuda-vs-cpu agreement, the
+# full-width run through the launcher
+# ---------------------------------------------------------------------------
+
+# b, t, c, taps, stride, padding, bias: ragged cases, then whisper-small's
+# two conv stems (the last two, timed)
+PATCH_CASES = [(2, 21, 13, 3, 1, "SAME", True),
+               (1, 131, 8, 4, 1, "VALID", False),
+               (2, 31, 8, 3, 2, "SAME", True), (2, 8, 8, 9, 1, "SAME", True),
+               (2, 2, 8, 3, 1, "VALID", True),
+               (3, 100, 136, 3, 2, "SAME", True),
+               (8, 3000, 80, 3, 1, "SAME", True),
+               (8, 3000, 768, 3, 2, "SAME", True)]
+WHISPER_N = 8 * 64            # the launcher's global N: B·T decoder tokens
+
+
+def unfold_addmm(x, c, *, taps, stride, padding, has_bias, alpha, beta):
+    """The library yardstick: ``unfold`` (im2col) and ``torch.addmm``."""
+    from repro_torch.models.conv import conv_pad_amounts
+    lo, hi = conv_pad_amounts(x.shape[1], taps, stride, padding)
+    p = torch.nn.functional.pad(x, (0, 0, lo, hi)).unfold(1, taps, stride)
+    p = p.transpose(-1, -2).reshape(-1, taps * x.shape[-1])
+    if has_bias:
+        p = torch.cat([p, p.new_ones(p.shape[0], 1)], dim=1)
+    return torch.addmm(c, p.T, p, beta=beta, alpha=alpha)
+
+
+def patch_kernel_row(dev, g) -> dict:
+    """patch_factor against its plain version on ragged cases and at
+    whisper-small's two conv shapes, at beta = 0 and 0.95 (the
+    factor_update rule: within TOL * max|alpha * P̂ᵀP̂|), then timed at the
+    two whisper shapes beside the plain version and unfold + addmm."""
+    from repro_torch.kernels.patch_factor import (patch_factor_update,
+                                                  patch_factor_update_ref,
+                                                  patch_geometry)
+    errs, ops = [], []
+    for b, t, c, k, s, pad, bias in PATCH_CASES:
+        x = torch.randn(b, t, c, generator=g, device=dev)
+        d = k * c + int(bias)
+        y = torch.tanh(torch.randn(512, d, generator=g, device=dev))
+        old = y.T @ y / 512
+        kw = dict(taps=k, stride=s, padding=pad, has_bias=bias)
+        for e in (0.0, 0.95):
+            eps = torch.tensor(e, device=dev)
+            a = (1 - eps) / WHISPER_N
+            prod = patch_factor_update_ref(x, old, alpha=a, beta=0.0, **kw)
+            compare(f"patch_factor x{(b, t, c)} k={k} s={s} {pad} "
+                    f"beta={e}",
+                    patch_factor_update(x, old, alpha=a, beta=eps, **kw),
+                    patch_factor_update_ref(x, old, alpha=a, beta=eps, **kw),
+                    errs, scale=max(prod.abs().max().item(), 1e-30))
+        if t == 3000:
+            ops.append((x, old, kw))
+    eps = torch.tensor(0.95, device=dev)
+    run = lambda f: [f(x, old, alpha=(1 - eps) / WHISPER_N, beta=eps, **kw)
+                     for x, old, kw in ops]
+    # P̂ᵀP̂ is symmetric, so the function needs only its d(d+1)/2 distinct
+    # entries, 2N operations each; the kernel computes all d².
+    flops = nbytes = full = 0.0
+    for x, old, kw in ops:
+        n = x.shape[0] * patch_geometry(x.shape, kw["taps"], kw["stride"],
+                                        kw["padding"])[1]
+        d = old.shape[0]
+        flops += float(n) * d * (d + 1)
+        full += 2.0 * n * d * d
+        nbytes += 4.0 * (x.numel() + 2 * d * d)
+    # the library call takes Python scalars: a tensor alpha or beta would
+    # make addmm read it on the host
+    library = lambda: [unfold_addmm(x, old, alpha=0.05 / WHISPER_N,
+                                    beta=0.95, **kw) for x, old, kw in ops]
+    return dict(
+        source="src/repro_torch/csrc/patch_factor.cu",
+        replaces="src/repro/kernels/patch_factor.py:83",
+        unit="both conv stems of one whisper-small stats step: x (8, 3000, "
+             "80) -> 241², x (8, 3000, 768) s 2 -> 2305²",
+        max_abs_err=max(errs),
+        library_calls="pad + unfold + cat + addmm",
+        **timings(lambda: run(patch_factor_update),
+                  lambda: run(patch_factor_update_ref), library),
+        bound=bound_ms(flops, nbytes),
+        full_product_bound_ms=bound_ms(full, 0.0)[0])
+
+
+def agree_whisper(steps: int = 4) -> list:
+    """Reduced whisper-small, ``steps`` K-FAC steps of the launcher's setup
+    on the card and on the CPU (plain versions), same weights and uniforms:
+    losses within rtol 1e-3."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import KFACConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.train import _ArchData
+    from repro_torch.models.lm import LM
+    from repro_torch.optimizers.kfac import kfac
+    from repro_torch.training.trainer import Trainer
+
+    cfg = get_reduced_config("whisper-small")
+    kcfg = KFACConfig(lambda_init=10.0, t3=5)
+    params = LM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    hist = {}
+    for where in ("cuda", "cpu"):
+        lm = LM(cfg, device=where)
+        data = _ArchData(cfg, SyntheticLMData(cfg.vocab_size, 64, 8,
+                                              device=where))
+        noise = lambda step, shape, where=where: torch.rand(
+            shape, generator=torch.Generator().manual_seed(step)).to(where)
+        tr = Trainer(lm, kfac(lm, kcfg, device=where),
+                     TrainConfig(seed=0, log_every=10 ** 9), noise=noise,
+                     device=where)
+        hist[where] = [h["loss"] for h in tr.fit(
+            to_device(params, where), data, steps=steps,
+            log=lambda *_: None)["history"]]
+    print(f"[agree:whisper] reduced whisper-small losses cuda {hist['cuda']}")
+    print(f"        plain versions on the cpu        {hist['cpu']}")
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        if not abs(a - b) <= 1e-3 * abs(b):
+            raise AssertionError(f"whisper: cuda path {a} vs cpu path {b}")
+    return hist["cuda"]
+
+
+W_STEPS = 10
+
+
+def whisper_main(steps: int) -> dict:
+    """``Trainer.fit`` of full-width whisper-small through
+    ``launch/train.py``'s ``main``, the launch counters zeroed just before
+    and read just after.  Each stats step launches patch_factor twice
+    (conv1, conv2), factor_update on both sides of the 18 stacked dense
+    layers and on the conv stems' G sides (38) and precondition on the 20
+    Kronecker blocks; each refresh ns_step on the 42 full factors times 12
+    iterations (the embedding's G, the head's Ā: their diagonal sides take
+    no kernel), each ns_step and precondition two matmul launches."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import KFACConfig
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    ms = []
+    res = train.main(["--arch", "whisper-small", "--steps", str(steps)],
+                     log=lambda msg: print(f"  {msg}"),
+                     wrap_opt=lambda opt: timed(opt, ms))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launches()
+    peak = torch.cuda.max_memory_allocated()
+    refresh = [i for i in range(steps) if i < 3 or i % 5 == 0]
+    kfac_cfg = KFACConfig()
+    n_factor_sides, n_blocks, n_full = 38, 20, 42
+    ns = len(refresh) * n_full * kfac_cfg.ns_iters
+    want = {name: 0 for name in K.WRAPPERS}
+    want.update(patch_factor=2 * steps, factor_update=n_factor_sides * steps,
+                precondition=n_blocks * steps, ns_step=ns,
+                matmul=2 * (n_blocks * steps + ns))
+    losses = [h["loss"] for h in res["history"]]
+    plain = sorted(t for i, t in enumerate(ms) if i not in refresh)
+    print(f"[main:whisper] full-width whisper-small "
+          f"({LM(get_config('whisper-small'), device='cuda').n_params():,} "
+          f"params), batch 8, seq 64, {steps} steps in {wall:.1f} s")
+    print(f"  per-step ms: {[round(t, 1) for t in ms]}")
+    print(f"  plain-step median {plain[len(plain) // 2]:.1f} ms; refresh "
+          f"steps {[round(ms[i], 1) for i in refresh]} ms (step 0 includes "
+          f"the first calls' set-up); peak memory {peak / 2 ** 20:.1f} MiB, "
+          f"of which {resident / 2 ** 20:.1f} MiB was allocated before")
+    print(f"  losses: {[round(v, 4) for v in losses]}")
+    print(f"  launches: {launches}")
+    if (not all(math.isfinite(v) for v in losses)
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"whisper: loss not finite and falling: "
+                             f"{losses}")
+    if launches != want:
+        raise AssertionError(f"whisper: launch counts {launches}, expected "
+                             f"{want}")
+    out = {"steps": steps, "n_tokens": 8 * 64, "step_ms": ms,
+           "plain_step_ms_median": plain[len(plain) // 2],
+           "refresh_step_ms": {i: ms[i] for i in refresh},
+           "peak_mem_bytes": peak, "resident_bytes_before": resident,
+           "losses": losses, "launches": launches, "wall_s": wall}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_whisper() -> dict:
+    """Where whisper's time goes: steps 3 and 4 (a plain step and a lambda
+    step) of a second run of the launcher's setup under
+    ``torch.profiler``: device busy share and the busiest kernels.  Run
+    with the other profiles, after every timed path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import KFACConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.optimizers.kfac import kfac
+    from repro_torch.training.trainer import Trainer
+
+    cfg = get_config("whisper-small")
+    kcfg = KFACConfig(lambda_init=10.0, t3=5)
+    lm = LM(cfg, device="cuda")
+    opt = kfac(lm, kcfg, device="cuda")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def update(grads, state, params, batch, rng, _update=opt.update):
+        step = int(state.step)
+        if step == 3:
+            torch.cuda.synchronize()
+            prof.__enter__()
+            window["t0"] = time.perf_counter()
+        out_ = _update(grads, state, params, batch, rng)
+        if step == 4:
+            torch.cuda.synchronize()
+            window["ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.__exit__(None, None, None)
+        return out_
+
+    data = train._ArchData(cfg, SyntheticLMData(cfg.vocab_size, 64, 8,
+                                                device="cuda"))
+    Trainer(lm, dataclasses.replace(opt, update=update),
+            TrainConfig(steps=5, log_every=10 ** 9), device="cuda").fit(
+        lm.init_params(torch.Generator(device="cuda").manual_seed(0)),
+        data, steps=5, log=lambda *_: None)
+    print(f"[profile:whisper] steps 3 and 4 (plain, lambda) in "
+          f"{window['ms']:.1f} ms; busiest kernels:")
+    busy_ms, top = device_kernels(prof)
+    print(f"  device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / window['ms']:.1f}%)")
+    torch.cuda.empty_cache()
+    return {"wall_ms": window["ms"], "device_busy_ms": busy_ms, "top": top}
+
+
 def to_device(params, dev):
     from repro_torch.utils.tree import tree_map
     return tree_map(lambda t: t.to(dev), params)
@@ -951,6 +1227,23 @@ def main() -> None:
         full_product_bound_ms=bound_ms(
             2.0 * N_ROWS * sum(d * d for d in sides), 0.0)[0])
     del xs, cs
+    # the LM's stacked layers: (S, N, d) records, one launch with grid z
+    # over S (whisper-small's encoder widths at N = 8 x 1500 and the
+    # decoder's d_ff at N = 512)
+    for s_, n, d in [(12, 12000, 768), (12, 512, 3072), (12, 12000, 3072)]:
+        x = torch.tanh(randn(s_, n, d))
+        c = torch.stack([spd(d, 512)] * s_)
+        a, b = (1 - eps) / n, eps
+        prod = factor_update_ref(x, c, alpha=a, beta=0.0)
+        compare(f"factor_update batched X({s_},{n},{d})",
+                factor_update(x, c, alpha=a, beta=b),
+                factor_update_ref(x, c, alpha=a, beta=b), errs,
+                scale=prod.abs().max().item())
+        del x, c, prod
+    rows["factor_update"]["max_abs_err"] = max(errs)
+
+    # patch_factor: ragged cases and whisper-small's two conv stems
+    rows["patch_factor"] = patch_kernel_row(dev, g)
 
     # precondition: every (a, g) pair of the 8 layers
     errs = []
@@ -1174,6 +1467,9 @@ def main() -> None:
     print(f"  factor_update bound of the full (d, d) product, as the kernel "
           f"computes it: {rows['factor_update']['full_product_bound_ms']:.4f}"
           f" ms")
+    print(f"  patch_factor bound of the full (d, d) product, as the kernel "
+          f"computes it: {rows['patch_factor']['full_product_bound_ms']:.4f}"
+          f" ms")
 
     print(f"[time] kernels phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -1213,6 +1509,7 @@ def main() -> None:
                                      f"{b}")
     serve_agree = {arch: agree_serving(arch)
                    for arch in ("smollm-135m", "llama3.2-1b", "gemma2-2b")}
+    whisper_agree = agree_whisper()
 
     print(f"[time] agree phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -1242,18 +1539,9 @@ def main() -> None:
                           matmul=2 * ns + 8 * steps)}
     main_out, launches_by_path, profiles = {}, {}, {}
     for label, cfg in paths.items():
-        opt = kfac(mlp, cfg, family="bernoulli", device="cuda")
         step_ms = []
-
-        def timed_update(*args, _update=opt.update):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _update(*args)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            return out
-
-        trainer = Trainer(mlp, dataclasses.replace(opt, update=timed_update),
+        trainer = Trainer(mlp, timed(kfac(mlp, cfg, family="bernoulli",
+                                          device="cuda"), step_ms),
                           TrainConfig(steps=steps, seed=0, log_every=5),
                           device="cuda")
         torch.cuda.synchronize()
@@ -1400,10 +1688,18 @@ def main() -> None:
 
     print(f"[time] serve phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    # full-width whisper-small through the launcher (batch 8, seq 64,
+    # lambda_init 10, T3 5, blkdiag ns): warmup refreshes at steps 0-2, the
+    # T3 refresh at 5, lambda steps at 4 and 9
+    main_out["whisper"] = whisper_main(W_STEPS)
+    launches_by_path["whisper"] = main_out["whisper"]["launches"]
+    print(f"[time] whisper phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     # ---- 7. where the time goes --------------------------------------
     for label, cfg in paths.items():
         profiles[label] = profile_path(label, mlp, params, data, cfg, steps)
         main_out[label]["profile"] = profiles[label]
+    main_out["whisper"]["profile"] = profile_whisper()
 
     print(f"[time] profile phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -1417,7 +1713,7 @@ def main() -> None:
     for name in ("matmul", "factor_update", "precondition", "ns_step",
                  "matmul_rescale", "rotate_rescale", "axpy_momentum",
                  "precond_momentum", "flash_decode", "flash_decode_paged",
-                 "flash_attention"):
+                 "flash_attention", "patch_factor"):
         r = rows[name]
         by_path = {label: n[name] for label, n in launches_by_path.items()}
         if not any(by_path.values()):
@@ -1433,7 +1729,8 @@ def main() -> None:
             "eager_ms": r["eager_ms"], "unit": r["unit"],
             "cases": r.get("cases")})
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"main": main_out, "eigh_16_factors_eager_ms": eigh_ms}))
+    print(json.dumps({"main": main_out, "eigh_16_factors_eager_ms": eigh_ms,
+                      "whisper_agree_losses": whisper_agree}))
     print(json.dumps({"serve": serve_out, "serve_agree": serve_agree}))
     print(json.dumps({"kernels": kernels}))
     print(card)

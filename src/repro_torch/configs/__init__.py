@@ -1,6 +1,7 @@
-"""Architecture registry of the port: the ``--arch`` ids it serves so far
-(the llama family and gemma2; ``repro/configs/__init__.py`` lists all
-ten)."""
+"""Architecture registry of the port: the ``--arch`` ids it has so far
+(``repro/configs/__init__.py`` lists all ten).  Serving runs the llama
+family and gemma2 (the engine refuses the encoder-decoder); training runs
+whisper-small (``launch/train.py``)."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +14,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "smollm-135m": "smollm_135m",
     "llama3.2-1b": "llama3_2_1b",
     "gemma2-2b": "gemma2_2b",
+    "whisper-small": "whisper_small",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

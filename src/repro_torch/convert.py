@@ -34,15 +34,18 @@ def params_from_numpy(params: Dict[str, np.ndarray],
 def lm_params_from_numpy(params, device="cuda"):
     """The reference's ``LM.init_params`` tree as numpy (``jax.tree.map(
     np.asarray, params)``: dicts, the ``blocks`` tuple with its leading
-    ``n_groups`` dim on every leaf) -> the same tree of float32 tensors,
-    the layout ``repro_torch.models.lm.LM`` reads."""
+    ``n_groups`` dim on every leaf; whisper's ``enc_blocks`` stacked over
+    the encoder layers, ``enc_conv1``/``enc_conv2`` and ``head``) -> the
+    same tree of float32 tensors, the layout ``repro_torch.models.lm.LM``
+    reads (and the layout of an LM's K-FAC ``delta0`` and ``diag``)."""
     device = resolve_device(device)
     return tree_map(lambda x: _tensor(x, device).float(), params)
 
 
 def state_from_numpy(state: Mapping[str, Any], device="cuda") -> KFACState:
     """A K-FAC state given field by field as numpy (nested dicts for
-    factors / inv / diag / delta0; ``vars(jax_state)`` after
+    factors / inv, and for diag / delta0 the parameters' own tree, an LM's
+    with its stacked ``blocks`` tuple; ``vars(jax_state)`` after
     ``jax.tree.map(np.asarray, ...)``) -> the port's :class:`KFACState`.
     ``staleness`` and ``inv_pending`` default to 0 and None."""
     device = resolve_device(device)

@@ -1,6 +1,8 @@
 from repro_torch.core.blocks.base import (CurvatureBlock, build_blocks,
                                           register, resolve)
-from repro_torch.core.blocks.kron import DenseKronecker
+from repro_torch.core.blocks.conv import ConvKronecker
+from repro_torch.core.blocks.kron import DenseKronecker, DiagFactor
+from repro_torch.core.blocks.special import Embed, Head
 
-__all__ = ["CurvatureBlock", "DenseKronecker", "build_blocks", "register",
-           "resolve"]
+__all__ = ["ConvKronecker", "CurvatureBlock", "DenseKronecker", "DiagFactor",
+           "Embed", "Head", "build_blocks", "register", "resolve"]

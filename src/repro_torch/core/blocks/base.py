@@ -9,16 +9,16 @@ self-register against the ``LayerMeta.kind`` values they serve, and
 """
 from __future__ import annotations
 
-import abc
 from typing import Any, Dict, List, Optional, Type
 
 import torch
 
+from repro_torch.core import factors as F
 from repro_torch.core import inverse as INV
 from repro_torch.core.tags import LayerMeta
 
 
-class CurvatureBlock(abc.ABC):
+class CurvatureBlock:
     """One layer's Fisher block: layout, statistics, inverse, apply."""
 
     kinds: tuple = ()   # LayerMeta.kind values this class can serve
@@ -37,18 +37,30 @@ class CurvatureBlock(abc.ABC):
     # -- layout ---------------------------------------------------------
     def init_factors(self) -> Dict[str, Any]:
         m = self.meta
-        z = lambda d: torch.zeros(d, d, device=self.device)
-        return {"a": z(m.a_dim), "g": z(m.g_dim)}
+        lead = (m.n_stack,) if m.n_stack else ()
+        z = lambda d, kind: torch.zeros(F.factor_shape(d, kind, lead),
+                                        device=self.device)
+        return {"a": z(m.a_dim, m.a_kind), "g": z(m.g_dim, m.g_kind)}
 
     def identity_inverse(self) -> Dict[str, Any]:
-        m = self.meta
-        eye = lambda d: torch.eye(d, device=self.device)
-        return {"a_inv": eye(m.a_dim), "g_inv": eye(m.g_dim)}
+        def one(arr, kind):
+            if kind == "diag":
+                return torch.ones_like(arr)
+            return arr + torch.eye(arr.shape[-1], device=self.device)
+
+        z = self.init_factors()
+        return {"a_inv": one(z["a"], self.meta.a_kind),
+                "g_inv": one(z["g"], self.meta.g_kind)}
 
     # -- statistics (S5) ------------------------------------------------
-    @abc.abstractmethod
+    def stats_contrib(self, rec, gprobe, n: int) -> Dict[str, Any]:
+        """This step's (1/N-normalized) factor contribution {"a", "g"}."""
+        raise NotImplementedError(type(self).__name__)
+
     def update_factors(self, old, rec, gprobe, n: int, eps):
-        """Decayed blend ``C ← ε C + (1−ε) contrib``; ε is a device tensor."""
+        """Decayed blend ``C ← ε C + (1−ε) contrib``; ε is a device tensor.
+        Blocks with a kernel route override this."""
+        return F.blend(old, self.stats_contrib(rec, gprobe, n), eps)
 
     # -- inverses (S4.2 / S6.3) -----------------------------------------
     def damped_inverse(self, fac, gamma, *, method: str = "eigh",
@@ -57,9 +69,9 @@ class CurvatureBlock(abc.ABC):
                                        method=method, iters=iters, prev=prev)
 
     # -- preconditioning ------------------------------------------------
-    @abc.abstractmethod
     def precondition(self, inv, v):
         """``U = Ā⁻¹ V G⁻¹`` with this block's structure; v shaped like W."""
+        return INV.apply_block_inverse(self.meta, inv, v)
 
     def precond_momentum(self, inv, v, mom, alpha, mu, eigen: bool = False):
         """Fused update chain of the fixed-lr path (S4.2 + S7):

@@ -1,30 +1,64 @@
 """Kronecker-pair curvature blocks for dense linear maps (paper S3–S4.2).
 
-Mirrors the ``full``/``full`` layout of ``repro/core/blocks/kron.py``.
-:class:`DenseKronecker` runs its hot operations through the kernels on every
-layer, with no tiling gate (the CUDA kernels mask ragged edges):
+Mirrors the ``full`` and ``diag`` layouts of ``repro/core/blocks/kron.py``:
 
-  * the decayed factor accumulation through ``kernels.factor_update`` on
-    both sides, ``C ← ε C + α XᵀX`` with α = (1−ε)/n for Ā and (1−ε)·n for
-    G (per-token g = n·cot, so G = (1/n) Σ g gᵀ = n Σ cot cotᵀ);
-  * the two-sided apply through ``kernels.precond.precondition``;
-  * the EKFAC eigenbasis apply through ``kernels.rotate_rescale``;
-  * the fixed-lr update chain ``α·Ā⁻¹VḠ⁻¹ + μ·M`` with its ``ΣD²`` through
-    ``kernels.update_chain.precond_momentum`` (blkdiag inverses only: the
-    eigen apply composed with momentum takes the base class's plain
-    composition, as in the reference).
+  * :class:`DenseKronecker` — both factors dense (``full``/``full``), on
+    plain and stacked (``n_stack``) layers alike.  Its hot operations run
+    through the kernels on every layer, with no tiling gate (the CUDA
+    kernels mask ragged edges):
+      - the decayed factor accumulation through ``kernels.factor_update``
+        on both sides, ``C ← ε C + α XᵀX`` with α = (1−ε)/n for Ā and
+        (1−ε)·n for G (per-token g = n·cot, so G = (1/n) Σ g gᵀ =
+        n Σ cot cotᵀ); a stacked layer's (S, N, d) records go in one
+        launch, grid z over S;
+      - the two-sided apply through ``kernels.precond.precondition``
+        (stacked: the matmul kernel's batch dim);
+      - the EKFAC eigenbasis apply through ``kernels.rotate_rescale``;
+      - the fixed-lr update chain ``α·Ā⁻¹VḠ⁻¹ + μ·M`` with its ``ΣD²``
+        through ``kernels.update_chain.precond_momentum`` (blkdiag inverses
+        only: the eigen apply composed with momentum takes the base class's
+        plain composition, as in the reference).
+  * :class:`DiagFactor` — a diagonal factor on at least one side
+    (vocab-scale dims); the reference sends it to no kernel, and neither
+    does the port.
 
 On CPU tensors the wrappers take their plain PyTorch versions.  The
-``diag`` and ``block`` layouts and the TP / expert / conv blocks wait for
-later slices.
+``block`` layout (``BlockDiagKronecker``) waits for a model with a dense
+side above ``core.factors.MAX_FACTOR_DIM``.
 """
 from __future__ import annotations
 
+from repro_torch.core import factors as F
 from repro_torch.core.blocks.base import CurvatureBlock, register
 from repro_torch.kernels.factor_update import factor_update
 from repro_torch.kernels.precond import precondition as precond_kernel
 from repro_torch.kernels.rotate_rescale import rotate_rescale
 from repro_torch.kernels.update_chain import precond_momentum as chain_kernel
+
+
+@register
+class DiagFactor(CurvatureBlock):
+    """A diagonal factor on at least one side (vocab-scale dims); the
+    reference's plain per-side statistics."""
+
+    kinds = ("dense",)
+    priority = 30
+
+    @classmethod
+    def handles(cls, meta):
+        return "diag" in (meta.a_kind, meta.g_kind)
+
+    def stats_contrib(self, rec, gprobe, n):
+        m = self.meta
+        return {"a": F.outer_sum(rec["a"], m.a_kind,
+                                 stacked=m.n_stack > 0) / n,
+                "g": F.g_from_cotangent(gprobe, m, n)}
+
+
+def _rows(x, stacked: bool):
+    """Records (..., d) as the kernel's ([S,] N, d) rows."""
+    return (x.reshape(x.shape[0], -1, x.shape[-1]) if stacked
+            else x.reshape(-1, x.shape[-1]))
 
 
 @register
@@ -38,12 +72,15 @@ class DenseKronecker(CurvatureBlock):
     def handles(cls, meta):
         return meta.a_kind == "full" and meta.g_kind == "full"
 
+    def _g_side(self, old_g, gprobe, n, eps):
+        cot = _rows(gprobe.detach(), self.meta.n_stack > 0)
+        return factor_update(cot, old_g, alpha=(1.0 - eps) * n, beta=eps)
+
     def update_factors(self, old, rec, gprobe, n, eps):
-        one_m = 1.0 - eps
-        x_a = rec["a"].reshape(-1, rec["a"].shape[-1])
-        cot = gprobe.detach().reshape(-1, gprobe.shape[-1])
-        return {"a": factor_update(x_a, old["a"], alpha=one_m / n, beta=eps),
-                "g": factor_update(cot, old["g"], alpha=one_m * n, beta=eps)}
+        x_a = _rows(rec["a"], self.meta.n_stack > 0)
+        return {"a": factor_update(x_a, old["a"], alpha=(1.0 - eps) / n,
+                                   beta=eps),
+                "g": self._g_side(old["g"], gprobe, n, eps)}
 
     def precondition(self, inv, v):
         return precond_kernel(inv["a_inv"], v.float(), inv["g_inv"])

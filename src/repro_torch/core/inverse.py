@@ -1,6 +1,7 @@
 """Damped factor inverses + factored Tikhonov damping (S4.2, S6.3).
 
-Mirrors the ``full``-layout part of ``repro/core/inverse.py``.  Each block's
+Mirrors the ``full`` and ``diag`` layouts of ``repro/core/inverse.py``
+(the eigen path: ``full`` only).  Each block's
 factors are damped as ``(Ā + π γ I) ⊗ (G + γ/π I)`` with the trace-norm
 ``π = sqrt( (tr Ā / d_A) / (tr G / d_G) )``.  Methods: ``eigh`` (exact),
 ``ns`` (Newton–Schulz, hot-startable; its iteration body is the
@@ -17,8 +18,9 @@ inverse apply.  The eigendecomposition is ``torch.linalg.eigh``, as the
 reference calls ``jnp.linalg.eigh``; its basis is unique only up to column
 signs (and rotations inside near-degenerate eigenspaces).
 
-Everything is batched over leading dims: ``gamma`` may be a (c,) tensor of
-candidates (the S6.6 sweep), which stacks the inverses along a leading c.
+Everything is batched over leading dims (the LM's stacked layers): ``gamma``
+may be a (c,) tensor of candidates (the S6.6 sweep), which stacks the
+inverses along a leading c in front of them.
 No function here reads a device value on the host.
 """
 from __future__ import annotations
@@ -33,17 +35,33 @@ from repro_torch.kernels import ns_step as NS
 _TINY = 1e-20
 
 
-def pi_trace(a, a_dim, g, g_dim):
+def factor_trace(arr, kind: str):
+    """Total trace per lead index (stack, candidate): shape = lead dims."""
+    if kind == "diag":
+        return arr.sum(-1)
+    return torch.diagonal(arr, dim1=-2, dim2=-1).sum(-1)
+
+
+def pi_trace(a, a_kind, a_dim, g, g_kind, g_dim):
     """Paper S6.3 trace-norm pi, batched over lead dims."""
-    a_tr = torch.diagonal(a, dim1=-2, dim2=-1).sum(-1) / a_dim
-    g_tr = torch.diagonal(g, dim1=-2, dim2=-1).sum(-1) / g_dim
+    a_tr = factor_trace(a, a_kind) / a_dim
+    g_tr = factor_trace(g, g_kind) / g_dim
     return torch.sqrt(torch.clamp(a_tr, min=_TINY)
                       / torch.clamp(g_tr, min=_TINY))
 
 
-def _add_damp(arr, damp):
-    """arr + damp·I; damp has the lead-dims shape and broadcasts over arr's
-    (a (c,) damp on a (d, d) factor gives (c, d, d))."""
+def _outer(gamma, pi):
+    """gamma as a tensor that broadcasts against pi's lead dims from the
+    left: a (c,) candidate set on a stacked (S,) pi gives (c, S)."""
+    gamma = torch.as_tensor(gamma, dtype=torch.float32, device=pi.device)
+    return gamma.reshape(gamma.shape + (1,) * pi.dim())
+
+
+def _add_damp(arr, kind: str, damp):
+    """arr + damp·I (diag: + damp); damp has the lead-dims shape and
+    broadcasts over arr's (a (c,) damp on a (d, d) factor gives (c, d, d))."""
+    if kind == "diag":
+        return arr + damp[..., None]
     eye = torch.eye(arr.shape[-1], dtype=arr.dtype, device=arr.device)
     return arr + damp[..., None, None] * eye
 
@@ -59,7 +77,14 @@ def ns_inverse(m, iters: int, x0=None):
 
     With ``x0`` the iteration is hot-started, under the safeguard
     ``‖I − M x0‖_inf < 1``; where that fails, that matrix cold-starts at
-    ``I/‖M‖_inf``.  The choice is a ``torch.where`` on the device."""
+    ``I/‖M‖_inf``.  The choice is a ``torch.where`` on the device.  The
+    iteration runs on every lead dim (gamma candidates, stacked layers)
+    flattened into the kernels' one batch dim."""
+    shape = m.shape
+    if m.dim() > 3:
+        m = m.reshape(-1, *shape[-2:])
+        if x0 is not None:
+            x0 = x0.expand(shape).reshape(-1, *shape[-2:])
     cold = NS.cold_start(m)
     if x0 is None:
         x = cold
@@ -70,14 +95,16 @@ def ns_inverse(m, iters: int, x0=None):
         x = torch.where(bad[..., None, None], cold, x0)
     for _ in range(iters):
         x = NS.ns_step(m, x)
-    return 0.5 * (x + x.transpose(-1, -2))
+    return (0.5 * (x + x.transpose(-1, -2))).reshape(shape)
 
 
-def factor_inverse(arr, damp, *, method: str = "eigh", iters: int = 12,
-                   prev=None):
-    """Inverse of (factor + damp·I)."""
-    arr = _add_damp(arr.float(), torch.as_tensor(damp, dtype=torch.float32,
-                                                 device=arr.device))
+def factor_inverse(arr, kind: str, damp, *, method: str = "eigh",
+                   iters: int = 12, prev=None):
+    """Inverse of (factor + damp·I); the diag kind returns the reciprocal."""
+    arr = _add_damp(arr.float(), kind, torch.as_tensor(
+        damp, dtype=torch.float32, device=arr.device))
+    if kind == "diag":
+        return 1.0 / torch.clamp(arr, min=_TINY)
     if method == "eigh":
         return eigh_inverse(arr)
     if method == "ns":
@@ -87,11 +114,15 @@ def factor_inverse(arr, damp, *, method: str = "eigh", iters: int = 12,
 
 def damped_pair_inverse(meta: LayerMeta, a, g, gamma, *, method="eigh",
                         iters=12, prev: Optional[Dict] = None):
-    """Both inverses of one layer block under factored Tikhonov damping."""
-    pi = pi_trace(a, meta.a_dim, g, meta.g_dim)
-    a_inv = factor_inverse(a, pi * gamma, method=method, iters=iters,
+    """Both inverses of one layer block under factored Tikhonov damping;
+    a (c,) ``gamma`` stacks the c candidates' inverses in front."""
+    pi = pi_trace(a, meta.a_kind, meta.a_dim, g, meta.g_kind, meta.g_dim)
+    gm = _outer(gamma, pi)
+    a_inv = factor_inverse(a, meta.a_kind, pi * gm, method=method,
+                           iters=iters,
                            prev=None if prev is None else prev.get("a_inv"))
-    g_inv = factor_inverse(g, gamma / pi, method=method, iters=iters,
+    g_inv = factor_inverse(g, meta.g_kind, gm / pi, method=method,
+                           iters=iters,
                            prev=None if prev is None else prev.get("g_inv"))
     return {"a_inv": a_inv, "g_inv": g_inv}
 
@@ -118,7 +149,7 @@ def _eigen_parts(meta: LayerMeta, a, g):
     """The gamma-independent pieces: bases, eigenvalue column/row, pi."""
     qa, wa = eigh_basis(a)
     qg, wg = eigh_basis(g)
-    pi = pi_trace(a, meta.a_dim, g, meta.g_dim)
+    pi = pi_trace(a, meta.a_kind, meta.a_dim, g, meta.g_kind, meta.g_dim)
     return qa, qg, wa[..., :, None], wg[..., None, :], pi
 
 
@@ -167,6 +198,22 @@ def apply_eigen(eig, v, floor: float = 1e-12):
     return rotate_eigen(eig["qa"], eig["qg"], t, adjoint=False)
 
 
+def _mul_left(inv, kind: str, v):
+    """Multiply along the d_in (second-to-last) axis of v."""
+    if kind == "diag":
+        return v * inv[..., :, None]
+    return inv @ v
+
+
+def _mul_right(inv, kind: str, v):
+    """Multiply along the d_out (last) axis of v."""
+    if kind == "diag":
+        return v * inv[..., None, :]
+    return v @ inv
+
+
 def apply_block_inverse(meta: LayerMeta, inv: Dict, v):
-    """U = Ā⁻¹ V G⁻¹ (jnp order: Ā⁻¹ V first); v shaped like the weight."""
-    return (inv["a_inv"] @ v.float()) @ inv["g_inv"]
+    """U = Ā⁻¹ V G⁻¹ (jnp order: Ā⁻¹ V first) with per-kind structure; v
+    shaped like the weight (a leading n_stack on stacked layers)."""
+    u = _mul_left(inv["a_inv"], meta.a_kind, v.float())
+    return _mul_right(inv["g_inv"], meta.g_kind, u)

@@ -5,6 +5,16 @@ the inputs ``ā`` and the pre-activation gradients ``g = dL/ds`` per example
 (S3, S5).  The zero-probe trick carries over to autograd directly: in collect
 mode the forward computes ``s = ā W + p`` with ``p`` a zero tensor that
 requires grad, so ``torch.autograd.grad(loss, p)`` is ``dL/ds`` per example.
+
+The LM's layers are stacked over ``n_stack`` groups (the reference scans
+over them): a stacked layer's probe carries a leading ``n_stack`` dim, of
+which group ``i`` adds ``probe[i]`` (an ``unbind`` view, so the probe's
+gradient comes back stacked), and the model stacks the group records.
+
+Where the reference contracts ``aa = Σ a aᵀ`` inside its scanned forward
+(``repro/models/lm.py::_contract_map``), the port records the raw ``a`` and
+contracts it in the factor update (``kernels.factor_update`` over the
+stacked (S, N, d) records): the same factors, one launch per stacked layer.
 """
 from __future__ import annotations
 
@@ -17,13 +27,21 @@ class LayerMeta:
     """Static description of one K-FAC-tagged linear map."""
 
     name: str
-    param_path: Tuple[Any, ...]     # path into the params dict -> weight
+    param_path: Tuple[Any, ...]     # path into the params tree -> weight
     d_in: int
     d_out: int
-    kind: str = "dense"             # dense (the only kind ported so far)
-    a_kind: str = "full"            # full (diag / block: later slices)
+    kind: str = "dense"             # dense | conv | embed | head
+    n_stack: int = 0                # >0: leading stack dim on weight/factors
+    a_kind: str = "full"            # full | diag | block (not ported)
     g_kind: str = "full"
     has_bias: bool = False          # homogeneous coordinate appended to ā
+    # convolution layers (kind == "conv", KFC — 1602.01407): the weight is a
+    # (prod(conv_spatial)*conv_in [+1], d_out) matrix over tap-major patch
+    # features [k, c]; d_in is the flattened patch width
+    conv_spatial: Tuple[int, ...] = ()   # kernel spatial shape (K,)
+    conv_stride: Tuple[int, ...] = ()    # window strides, same rank
+    conv_in: int = 0                     # input channels C
+    conv_pad: str = "VALID"              # lax padding ("SAME" | "VALID")
 
     @property
     def a_dim(self) -> int:
@@ -37,7 +55,7 @@ class LayerMeta:
 class Tagger:
     """Forward-pass context. Modes:
 
-    * ``plain``   — inference; tags are no-ops.
+    * ``plain``   — inference and the gradient pass; tags are no-ops.
     * ``collect`` — add probes, record activations (the stats pass).
     """
 
@@ -49,15 +67,45 @@ class Tagger:
         self.probes = probes or {}
         self.records: Dict[str, Any] = {}
 
+    def _add_probe(self, name: str, s):
+        return s + self.probes[name] if name in self.probes else s
+
     def tag(self, name: str, a, s):
         """Tag a dense map: ``a`` inputs (..., d_in), ``s`` outputs
         (..., d_out).  Returns ``s`` (plus probe in collect mode)."""
         if self.mode == "plain":
             return s
         self.records[name] = {"a": a.detach()}
-        if name in self.probes:
-            s = s + self.probes[name]
-        return s
+        return self._add_probe(name, s)
+
+    def tag_conv(self, name: str, x, s):
+        """Tag a convolution: ``x`` the RAW (pre-im2col) input (B, T, C),
+        ``s`` the outputs (B, T_out, d_out).  Only the raw input is recorded:
+        ``ConvKronecker`` reads the patches from it (the ``patch_factor``
+        kernel on the card), so the record holds no im2col buffer."""
+        if self.mode == "plain":
+            return s
+        self.records[name] = {"cx": x.detach()}
+        return self._add_probe(name, s)
+
+    def tag_embed(self, name: str, ids, s, mask):
+        """Tag an embedding lookup: ``ids`` int tokens, ``s`` embeddings,
+        ``mask`` the tokens' loss mask (the reference's Embed block reads it
+        from the batch)."""
+        if self.mode == "plain":
+            return s
+        self.records[name] = {"ids": ids, "mask": mask}
+        return self._add_probe(name, s)
 
     def out(self) -> Dict[str, Any]:
         return self.records
+
+
+def merge_records(*records: Dict[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for r in records:
+        for k, v in r.items():
+            if k in out:
+                raise ValueError(f"duplicate K-FAC tag {k!r}")
+            out[k] = v
+    return out

@@ -20,9 +20,9 @@ class KFACState:
 
     ``factors``  per-block running Kronecker factors {"a", "g"} (S5);
     ``inv``      per-block damped inverses {"a_inv", "g_inv"};
-    ``diag``     an empty tensor per (tagged) param: the reference's slot
-                 for the diagonal curvature of untagged params, which the
-                 port does not have yet;
+    ``diag``     per param: the running diagonal curvature (squared
+                 gradients) of an untagged param such as a norm scale, an
+                 empty tensor for a tagged one;
     ``delta0``   previous update (the S7 momentum tangent);
     ``lam`` / ``gamma``  LM damping (S6.5) and factored damping (S6.6);
     ``m_delta`` / ``loss_prev``  quadratic-model value and last loss, the

@@ -1,4 +1,5 @@
-// out = ab[0] * x^T x + ab[1] * c for x of shape (n, d), c of shape (d, d).
+// out[b] = ab[0] * x[b]^T x[b] + ab[1] * c[b] for x of shape ([batch,] n, d),
+// c of shape ([batch,] d, d).
 //
 // Replaces the Pallas TPU kernel repro/kernels/factor_update.py::
 // factor_update (the decayed Kronecker-factor accumulation of paper S5).
@@ -17,6 +18,12 @@
 // z-slice each, whose partial sums land in `ws` (splits, d, d); a second,
 // elementwise kernel adds them in a fixed order and applies the epilogue,
 // so the result does not depend on scheduling.
+//
+// The LM's stacked layers (n_stack groups of one pattern position) send a
+// batch of factors at once: grid z runs over the batch, every slice summing
+// its own n rows (k_total = batch * n, so the tile's per-z row clamp keeps
+// all n).  A batch fills the card with batch times the tiles, so it takes
+// no split.
 #include "gemm_tile.cuh"
 
 namespace {
@@ -36,9 +43,16 @@ __global__ void sum_partials_kernel(const float* __restrict__ ws, int splits,
 }  // namespace
 
 extern "C" int repro_factor_update_f32(const float* x, const float* c,
-                                       float* out, float* ws, int n, int d,
-                                       int splits, const float* ab,
-                                       void* stream) {
+                                       float* out, float* ws, int batch,
+                                       int n, int d, int splits,
+                                       const float* ab, void* stream) {
+  const long long dd = static_cast<long long>(d) * d;
+  if (batch > 1) {
+    const long long nd = static_cast<long long>(n) * d;
+    return repro_torch::launch_gemm_f32<true, repro_torch::kAxpby>(
+        x, x, c, out, batch, d, d, n, batch * n, nd, nd, dd, dd, ab, 0.f,
+        0.f, nullptr, stream);
+  }
   if (splits <= 1)
     return repro_torch::launch_gemm_f32<true, repro_torch::kAxpby>(
         x, x, c, out, 1, d, d, n, n, 0, 0, 0, 0, ab, 0.f, 0.f, nullptr,
@@ -48,7 +62,6 @@ extern "C" int repro_factor_update_f32(const float* x, const float* c,
   const int chunk = (per + repro_torch::kBK - 1) / repro_torch::kBK *
                     repro_torch::kBK;
   const int used = (n + chunk - 1) / chunk;
-  const long long dd = static_cast<long long>(d) * d;
   const int status = repro_torch::launch_gemm_f32<true, repro_torch::kAxpby>(
       x, x, nullptr, ws, used, d, d, chunk, n,
       static_cast<long long>(chunk) * d, static_cast<long long>(chunk) * d, 0,

@@ -1,7 +1,8 @@
 """Deterministic synthetic data (mirrors ``repro/data/pipeline.py``).
 
 The arrays are made with the reference's numpy code, so they are bitwise
-equal to the JAX package's; they then live on the device as float32 tensors.
+equal to the JAX package's; they then live on the device (float32 data,
+int32 tokens).  Every batch is a pure function of (seed, step).
 """
 from __future__ import annotations
 
@@ -33,3 +34,43 @@ class SyntheticAutoencoderData:
         idx = (torch.arange(bs, device=self.device) + step * bs) % self.n
         x = self._x.index_select(0, idx)
         return {"x": x, "y": x}
+
+
+class SyntheticLMData:
+    """Markov-chain token stream: learnable (next token is a noisy affine
+    function of the current), deterministic per (seed, step); the
+    reference's numpy draws, bitwise."""
+
+    def __init__(self, vocab: int, seq: int, global_batch: int, seed: int = 0,
+                 noise: float = 0.1, device="cuda"):
+        self.vocab, self.seq, self.gb = vocab, seq, global_batch
+        self.seed, self.noise = seed, noise
+        self.a = 6364136223846793005 % max(vocab - 1, 1) + 1
+        self.c = 1442695040888963407 % vocab
+        self.device = resolve_device(device)
+
+    def numpy_batch(self, step: int):
+        rng = np.random.default_rng((self.seed, step))
+        t0 = rng.integers(0, self.vocab, size=(self.gb, 1))
+        toks = [t0]
+        for _ in range(self.seq):
+            nxt = (toks[-1] * self.a + self.c) % self.vocab
+            flip = rng.random((self.gb, 1)) < self.noise
+            rand = rng.integers(0, self.vocab, size=(self.gb, 1))
+            toks.append(np.where(flip, rand, nxt))
+        stream = np.concatenate(toks, axis=1).astype(np.int32)
+        return {"tokens": stream[:, :-1], "labels": stream[:, 1:]}
+
+    def batch(self, step: int):
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in self.numpy_batch(step).items()}
+
+
+def make_audio_batch(base, n_mels: int, n_frames: int, step: int = 0):
+    """Raw log-mel frames (B, n_frames, n_mels) for the audio frontend,
+    drawn from ``default_rng((11, step))`` as the reference draws them, on
+    the device of ``base``'s tokens."""
+    b = base["tokens"].shape[0]
+    rng = np.random.default_rng((11, step))
+    mels = rng.standard_normal((b, n_frames, n_mels)).astype(np.float32)
+    return dict(base, mels=torch.from_numpy(mels).to(base["tokens"].device))

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels of the K-FAC and serving paths (decode and
-prefill attention) and their wrappers.
+prefill attention, the conv stem's patch factors) and their wrappers.
 
 Each wrapper takes its plain PyTorch version (``*_ref``) only for CPU
 tensors; for CUDA tensors it launches its kernel or raises.  Each carries a
@@ -13,6 +13,7 @@ from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import flash_decode as _flash_decode
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import ns_step as _ns_step
+from repro_torch.kernels import patch_factor as _patch_factor
 from repro_torch.kernels import precond as _precond
 from repro_torch.kernels import rotate_rescale as _rotate_rescale
 from repro_torch.kernels import update_chain as _update_chain
@@ -27,7 +28,8 @@ WRAPPERS = {"matmul": _matmul.matmul,
             "precond_momentum": _update_chain.precond_momentum,
             "flash_decode": _flash_decode.flash_decode,
             "flash_decode_paged": _flash_decode.flash_decode_paged,
-            "flash_attention": _flash_attention.flash_attention}
+            "flash_attention": _flash_attention.flash_attention,
+            "patch_factor": _patch_factor.patch_factor_update}
 
 
 def reset_launches() -> None:

@@ -16,8 +16,10 @@ d(d+1)/2 distinct entries, ``N·d·(d+1)`` fp32 operations, against
 and 0.123 ms at N = 8192, d = 1001, against 67 TFLOP/s).  A (d, d) output
 has few 64×64 tiles (one at d = 30) against a long N, so narrow factors
 split N over the grid (:func:`splits`) and sum the partials in a second
-pass.  The kernel computes the whole (d, d) product, twice the work the
-bound counts; computing one triangle and mirroring it is later work.
+pass.  The LM's stacked layers pass (S, N, d) with (S, d, d) factors: one
+launch, grid z over S (no split: S times the tiles fill the card).  The
+kernel computes the whole (d, d) product, twice the work the bound counts;
+computing one triangle and mirroring it is later work.
 """
 from __future__ import annotations
 
@@ -46,11 +48,13 @@ def splits(n: int, d: int, sms: int) -> int:
 def factor_update_ref(x, c, *, alpha, beta):
     """Plain PyTorch version (the CPU path and the card's oracle)."""
     x = x.float()
-    return alpha * (x.T @ x) + beta * c.float()
+    return alpha * (x.transpose(-1, -2) @ x) + beta * c.float()
 
 
 def factor_update(x, c, *, alpha, beta):
-    """x: (N, d) activations or cotangents; c: (d, d) running factor.
+    """x: ([S,] N, d) activations or cotangents; c: ([S,] d, d) running
+    factor(s).  A leading S (the LM's stacked layers) runs as grid z of one
+    launch.
 
     ``alpha``/``beta`` may be Python numbers or 0-d tensors; on the card
     they are packed into one device buffer the kernel reads by pointer.
@@ -59,19 +63,20 @@ def factor_update(x, c, *, alpha, beta):
     if x.device.type == "cpu":
         return factor_update_ref(x, c, alpha=alpha, beta=beta)
     _build.require_cuda_f32("factor_update", x, c)
-    if x.dim() != 2 or tuple(c.shape) != (x.shape[1], x.shape[1]):
+    n, d = x.shape[-2:]
+    if x.dim() not in (2, 3) or tuple(c.shape) != (*x.shape[:-2], d, d):
         raise ValueError(f"factor_update: x {tuple(x.shape)}, "
                          f"c {tuple(c.shape)}")
-    n, d = x.shape
+    batch = x.shape[0] if x.dim() == 3 else 1
     x, c = x.contiguous(), c.contiguous()
     ab = _build.scalar_pair(alpha, beta, x.device)
-    out = torch.empty(d, d, device=x.device, dtype=torch.float32)
-    s = splits(n, d, _sm_count(x.device.index or 0))
+    out = torch.empty_like(c)
+    s = splits(n, d, _sm_count(x.device.index or 0)) if batch == 1 else 1
     ws = (torch.empty(s, d, d, device=x.device, dtype=torch.float32)
           if s > 1 else None)
     status = _build.load().lib.repro_factor_update_f32(
         x.data_ptr(), c.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), n, d, s, ab.data_ptr(),
+        None if ws is None else ws.data_ptr(), batch, n, d, s, ab.data_ptr(),
         _build.stream_of(x))
     _build.check(status, "factor_update")
     factor_update.launches += 1

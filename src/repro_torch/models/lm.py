@@ -1,6 +1,7 @@
-"""Decoder-only LM for serving (mirrors ``repro/models/lm.py``): the dense
-families with global and sliding-window (local) attention, attention and
-logit softcaps and a dense MLP, that is llama and gemma2.
+"""The LM (mirrors ``repro/models/lm.py``): the dense decoder families with
+global and sliding-window (local) attention, attention and logit softcaps
+and a dense MLP (llama, gemma2), served; and the encoder-decoder whisper
+with its Conv1D mel stem, trained.
 
 Layers form a repeating *pattern* of block positions.  Parameters of each
 pattern position are stacked over ``n_groups = n_layers / period`` exactly
@@ -11,7 +12,23 @@ and global layers (period 2): even pattern positions are local, attending
 the last ``sliding_window`` positions, as ``repro/models/lm.py:66`` builds
 the pattern.
 
-Two execution paths share the block code:
+Training and serving run separate block code, so that serving does no
+K-FAC work:
+  * ``loss`` / ``hidden``  the training forward, K-FAC tagged
+                     (``core/tags.py``; ``models/layers.py::tagged_dense``):
+                     plain mode for the gradient pass, collect mode (zero
+                     probes, recorded inputs) for the statistics pass.  Its
+                     attention is the reference's differentiable chunked
+                     function (``models/layers.py::attention_train``).
+                     Stacked layers take group ``g`` of the parameters and
+                     probes as ``unbind`` views, so gradients come back
+                     stacked, and their records are stacked per group.
+                     whisper (``family="audio"``): the Conv1D stem (k 3 s 1,
+                     then k 3 s 2, tanh-approximate GELU after each, as
+                     ``jax.nn.gelu`` defaults) on the raw mels, KFC-tagged
+                     (``models/conv.py``), a full-attention encoder, and
+                     decoder blocks with cross-attention; no RoPE, a
+                     sinusoidal position embedding on both sides.
   * ``prefill``      plain forward that also emits the decode cache; its
                      attention goes through ``kernels.flash_attention``
                      (``models/layers.py::attention``);
@@ -33,10 +50,11 @@ Every attention layer passes its window (``sliding_window`` on local
 layers, 0 on global ones) and ``attn_softcap`` to the prefill attention and
 to both decode kernels; ``logit_softcap`` caps the head's logits.  Weights
 and activations are float32, caches bfloat16 (the new K/V row is rounded to
-nearest even on the write, as XLA rounds).  MoE, SSM, RWKV, the encoder and
-the modality frontends raise ``NotImplementedError`` until their slices
-arrive.  Training (the K-FAC-tagged forward and its loss) comes with the LM
-training slice.
+nearest even on the write, as XLA rounds).  MoE, SSM, RWKV and the vision
+frontend raise ``NotImplementedError`` until their slices arrive.  Serving
+whisper (its cross-attention cache) is not ported yet: the serving engine
+refuses an encoder-decoder when it builds its pools
+(``serving/cache.py``).
 """
 from __future__ import annotations
 
@@ -48,11 +66,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.factors import factor_layout
+from repro_torch.core.tags import LayerMeta, Tagger, merge_records
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
 from repro_torch.models import params as PM
-from repro_torch.models.head import head_logits
-from repro_torch.models.layers import apply_rope, attention, dense, rms_norm
+from repro_torch.models.conv import conv, conv_meta, conv_out_len
+from repro_torch.models.head import head_logits, lm_head_loss
+from repro_torch.models.layers import (apply_rope, attention,
+                                       attention_train, dense, rms_norm,
+                                       tagged_dense)
 from repro_torch.utils.device import resolve_device
+
+_PLAIN = Tagger("plain")
 
 
 @dataclass(frozen=True)
@@ -90,14 +115,58 @@ def build_pattern(cfg: ModelConfig) -> List[BlockSpec]:
 def _check_ported(cfg: ModelConfig, pattern: List[BlockSpec]) -> None:
     missing = sorted({s.attn for s in pattern} - {"global", "local"}
                      | {s.mlp for s in pattern} - {"dense"})
-    if cfg.encoder_layers or any(s.cross for s in pattern):
-        missing.append("encoder/cross-attention")
-    if cfg.frontend != "none":
+    if cfg.frontend not in ("none", "audio"):
         missing.append(f"{cfg.frontend} frontend")
+    if bool(cfg.encoder_layers) != (cfg.frontend == "audio"):
+        # the reference runs its encoder only behind the audio stem
+        missing.append("an encoder without the audio frontend (or the "
+                       "reverse)")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port's LM "
-            f"runs global and local attention with a dense MLP)")
+            f"runs global and local attention with a dense MLP, and "
+            f"whisper's encoder)")
+
+
+_TAG_LEAVES = {"attn": ("q", "k", "v", "o"), "cross": ("q", "k", "v", "o"),
+               "mlp": ("gate", "up", "down")}
+
+
+def _tag_names(prefix: str) -> Dict[str, Dict[str, str]]:
+    """The K-FAC names of a block's dense maps, ``{part: {leaf:
+    "prefix.part.leaf"}}``."""
+    return {part: {w: f"{prefix}.{part}.{w}" for w in leaves}
+            for part, leaves in _TAG_LEAVES.items()}
+
+
+def sinusoid_posemb(t: int, d: int, device=None):
+    """(t, d) sinusoidal position embedding: [sin(pos·f), cos(pos·f)]."""
+    pos = torch.arange(t, dtype=torch.float32, device=device)
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=device) / half)
+    ang = pos[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _groups(tree, n: int):
+    """The n groups of a stacked parameter tree as ``unbind`` views (their
+    gradients and tangents come back stacked)."""
+    if isinstance(tree, dict):
+        parts = {k: _groups(v, n) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in tree} for g in range(n)]
+    return list(tree.unbind(0))
+
+
+def _stack_records(recs):
+    """Per-group records ``[{name: {"a": x}}, ...]`` -> ``{name: {"a":
+    stacked}}``."""
+    if not recs or not recs[0]:
+        return {}
+    return {name: {k: torch.stack([r[name][k] for r in recs])
+                   for k in recs[0][name]}
+            for name in recs[0]}
 
 
 def _index(tree, g: int):
@@ -108,8 +177,9 @@ def _index(tree, g: int):
 
 
 class LM:
-    """The dense LM (llama, gemma2).  ``device`` defaults to ``"cuda"`` and
-    raises without a card; pass ``"cpu"`` for the plain PyTorch versions."""
+    """The LM (llama, gemma2, whisper).  ``device`` defaults to ``"cuda"``
+    and raises without a card; pass ``"cpu"`` for the plain PyTorch
+    versions."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         self.cfg = cfg
@@ -118,22 +188,30 @@ class LM:
         _check_ported(cfg, self.pattern)
         self.period = len(self.pattern)
         self.n_groups = cfg.n_layers // self.period
+        self.tag_names = [_tag_names(f"blk{i}") for i in range(self.period)]
+        self.enc_tag_names = _tag_names("enc")
         self.defs = self._param_defs()
+        self.metas = self._layer_metas()
 
     # ------------------------------------------------------------------
     # parameter definitions
     # ------------------------------------------------------------------
-    def _block_defs(self, lead):
+    def _attn_defs(self, pd):
+        d, qd, kvd = self.cfg.d_model, self.cfg.q_dim, self.cfg.kv_dim
+        return {"wq": pd((d, qd)), "wk": pd((d, kvd)), "wv": pd((d, kvd)),
+                "wo": pd((qd, d))}
+
+    def _block_defs(self, lead, cross=False):
         cfg = self.cfg
-        d, f, qd, kvd = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
+        d, f = cfg.d_model, cfg.d_ff
         pd = lambda shape, **kw: PM.ParamDef(shape=tuple(lead) + shape, **kw)
-        return {
-            "ln1": pd((d,), init="zeros"),
-            "attn": {"wq": pd((d, qd)), "wk": pd((d, kvd)),
-                     "wv": pd((d, kvd)), "wo": pd((qd, d))},
-            "ln2": pd((d,), init="zeros"),
-            "mlp": {"wg": pd((d, f)), "wu": pd((d, f)), "wd": pd((f, d))},
-        }
+        p = {"ln1": pd((d,), init="zeros"), "attn": self._attn_defs(pd)}
+        if cross:
+            p["ln_cross"] = pd((d,), init="zeros")
+            p["cross"] = self._attn_defs(pd)
+        p["ln2"] = pd((d,), init="zeros")
+        p["mlp"] = {"wg": pd((d, f)), "wu": pd((d, f)), "wd": pd((f, d))}
+        return p
 
     def _param_defs(self):
         cfg = self.cfg
@@ -141,20 +219,32 @@ class LM:
         defs: Dict[str, Any] = {
             "embed": PM.ParamDef((v, d), init="embed"),
             "final_ln": PM.ParamDef((d,), init="zeros"),
-            "blocks": tuple(self._block_defs((self.n_groups,))
-                            for _ in self.pattern),
+            "blocks": tuple(self._block_defs((self.n_groups,), s.cross)
+                            for s in self.pattern),
         }
         if not cfg.tie_embeddings:
             defs["head"] = PM.ParamDef((d, v))
+        if cfg.encoder_layers:
+            defs["enc_blocks"] = self._block_defs((cfg.encoder_layers,))
+            defs["enc_final_ln"] = PM.ParamDef((d,), init="zeros")
+        if cfg.frontend == "audio":
+            # whisper's Conv1D stem: mels -> d (k 3 s 1), d -> d (k 3 s 2);
+            # tap-major patch matrices, the bias as the last row
+            defs["enc_conv1"] = PM.ParamDef((3 * cfg.n_mels + 1, d))
+            defs["enc_conv2"] = PM.ParamDef((3 * d + 1, d))
         return defs
 
     def init_params(self, generator: Optional[torch.Generator] = None):
         """The port's own float32 initial values (the reference's
-        initializers and scales), drawn from ``generator`` (seed 0 on the
-        model's device by default)."""
+        initializers and scales, the conv stems' bias rows zeroed), drawn
+        from ``generator`` (seed 0 on the model's device by default)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        return PM.materialize(generator, self.defs, self.device)
+        params = PM.materialize(generator, self.defs, self.device)
+        for name in ("enc_conv1", "enc_conv2"):
+            if name in params:
+                params[name][-1].zero_()
+        return params
 
     def n_params(self) -> int:
         return PM.count(self.defs)
@@ -163,6 +253,57 @@ class LM:
         if self.cfg.tie_embeddings:
             return params["embed"].T
         return params["head"]
+
+    # ------------------------------------------------------------------
+    # K-FAC layer metadata
+    # ------------------------------------------------------------------
+    def _layer_metas(self) -> Dict[str, LayerMeta]:
+        cfg = self.cfg
+        metas: Dict[str, LayerMeta] = {}
+
+        def add(name, path, n_stack):
+            pdef = self.defs
+            for k in path:
+                pdef = pdef[k]
+            d_in, d_out = pdef.shape[-2:]
+            metas[name] = LayerMeta(name=name, param_path=path, d_in=d_in,
+                                    d_out=d_out, kind="dense",
+                                    n_stack=n_stack,
+                                    a_kind=factor_layout(d_in),
+                                    g_kind=factor_layout(d_out))
+
+        weight = {"q": "wq", "k": "wk", "v": "wv", "o": "wo", "gate": "wg",
+                  "up": "wu", "down": "wd"}
+
+        def add_block(names, path, parts, n_stack):
+            for part in parts:
+                for w, name in names[part].items():
+                    add(name, path + (part, weight[w]), n_stack)
+
+        for pos, spec in enumerate(self.pattern):
+            add_block(self.tag_names[pos], ("blocks", pos),
+                      ("attn", "cross", "mlp") if spec.cross
+                      else ("attn", "mlp"), self.n_groups)
+        if cfg.encoder_layers:
+            add_block(self.enc_tag_names, ("enc_blocks",), ("attn", "mlp"),
+                      cfg.encoder_layers)
+        if cfg.frontend == "audio":
+            metas["enc.conv1"] = conv_meta(
+                "enc.conv1", ("enc_conv1",), spatial=(3,), stride=(1,),
+                c_in=cfg.n_mels, d_out=cfg.d_model, padding="SAME")
+            metas["enc.conv2"] = conv_meta(
+                "enc.conv2", ("enc_conv2",), spatial=(3,), stride=(2,),
+                c_in=cfg.d_model, d_out=cfg.d_model, padding="SAME")
+        # embedding: diagonal A (token frequencies), full G on d_model
+        metas["embed"] = LayerMeta(
+            name="embed", param_path=("embed",), d_in=cfg.vocab_size,
+            d_out=cfg.d_model, kind="embed", a_kind="diag", g_kind="full")
+        if not cfg.tie_embeddings:
+            metas["lm_head"] = LayerMeta(
+                name="lm_head", param_path=("head",), d_in=cfg.d_model,
+                d_out=cfg.vocab_size, kind="head", a_kind="full",
+                g_kind="diag")
+        return metas
 
     # ------------------------------------------------------------------
     # block application (shared by prefill / decode)
@@ -226,6 +367,183 @@ class LM:
 
     def _embed(self, params, tokens):
         return params["embed"][tokens.long()]
+
+    # ------------------------------------------------------------------
+    # training blocks (K-FAC tagged; the serving blocks above are untagged)
+    # ------------------------------------------------------------------
+    def _attn_train(self, tg, names, p, x, positions, *, window,
+                    causal=True):
+        cfg = self.cfg
+        bsz, t, _ = x.shape
+        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q = tagged_dense(tg, names["q"], p["wq"], x).reshape(bsz, t, hq, hd)
+        k = tagged_dense(tg, names["k"], p["wk"], x).reshape(bsz, t, hkv, hd)
+        v = tagged_dense(tg, names["v"], p["wv"], x).reshape(bsz, t, hkv, hd)
+        if cfg.family != "audio":
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        o = attention_train(q, k, v, causal=causal, window=window,
+                            cap=cfg.attn_softcap)
+        return tagged_dense(tg, names["o"], p["wo"],
+                            o.reshape(bsz, t, hq * hd))
+
+    def _cross_attn(self, tg, names, p, x, enc_out):
+        """Decoder cross-attention over the encoder output."""
+        cfg = self.cfg
+        bsz, t, _ = x.shape
+        tk = enc_out.shape[1]
+        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q = tagged_dense(tg, names["q"], p["wq"], x).reshape(bsz, t, hq, hd)
+        k = tagged_dense(tg, names["k"], p["wk"], enc_out).reshape(
+            bsz, tk, hkv, hd)
+        v = tagged_dense(tg, names["v"], p["wv"], enc_out).reshape(
+            bsz, tk, hkv, hd)
+        o = attention_train(q, k, v, causal=False)
+        return tagged_dense(tg, names["o"], p["wo"],
+                            o.reshape(bsz, t, hq * hd))
+
+    def _mlp_train(self, tg, names, p, x):
+        g = tagged_dense(tg, names["gate"], p["wg"], x)
+        u = tagged_dense(tg, names["up"], p["wu"], x)
+        return tagged_dense(tg, names["down"], p["wd"], F.silu(g) * u)
+
+    def _block_train(self, spec, tg, p, h, positions, enc_out):
+        eps = self.cfg.norm_eps
+        names = self.tag_names[spec.pos]
+        window = self.cfg.sliding_window if spec.attn == "local" else 0
+        h = h + self._attn_train(tg, names["attn"], p["attn"],
+                                 rms_norm(h, p["ln1"], eps), positions,
+                                 window=window)
+        if spec.cross:
+            h = h + self._cross_attn(tg, names["cross"], p["cross"],
+                                     rms_norm(h, p["ln_cross"], eps),
+                                     enc_out)
+        return h + self._mlp_train(tg, names["mlp"], p["mlp"],
+                                   rms_norm(h, p["ln2"], eps))
+
+    @staticmethod
+    def _group_probes(probes, prefix, n):
+        """Group g's probes of the stacked layers named ``prefix*``."""
+        parts = {k: v.unbind(0) for k, v in (probes or {}).items()
+                 if k.startswith(prefix) and ".conv" not in k}
+        return [{k: v[g] for k, v in parts.items()} for g in range(n)]
+
+    def _encoder(self, params, mels, tg, mode, probes):
+        """whisper's encoder: the Conv1D stem (both convs tagged on the
+        outer tagger ``tg``) and the full-attention stack.  mels: (B,
+        2*encoder_seq, n_mels) raw log-mel frames."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        x = conv(tg, "enc.conv1", params["enc_conv1"], mels.float(),
+                 spatial=(3,), stride=(1,), padding="SAME")
+        x = F.gelu(x, approximate="tanh")
+        x = conv(tg, "enc.conv2", params["enc_conv2"], x, spatial=(3,),
+                 stride=(2,), padding="SAME")
+        h = F.gelu(x, approximate="tanh")
+        h = h + sinusoid_posemb(h.shape[1], cfg.d_model, h.device)[None]
+        n = cfg.encoder_layers
+        names = self.enc_tag_names
+        recs = []
+        for p, prs in zip(_groups(params["enc_blocks"], n),
+                          self._group_probes(probes, "enc.", n)):
+            tg_g = Tagger(mode, prs)
+            h = h + self._attn_train(tg_g, names["attn"], p["attn"],
+                                     rms_norm(h, p["ln1"], eps), None,
+                                     window=0, causal=False)
+            h = h + self._mlp_train(tg_g, names["mlp"], p["mlp"],
+                                    rms_norm(h, p["ln2"], eps))
+            recs.append(tg_g.out())
+        return rms_norm(h, params["enc_final_ln"], eps), _stack_records(recs)
+
+    def _backbone(self, params, x, positions, mode, probes, enc_out=None):
+        ng = self.n_groups
+        groups = [_groups(params["blocks"][i], ng)
+                  for i in range(self.period)]
+        h, recs = x, []
+        for g, prs in enumerate(self._group_probes(probes, "blk", ng)):
+            tg_g = Tagger(mode, prs)
+            for i, spec in enumerate(self.pattern):
+                h = self._block_train(spec, tg_g, groups[i][g], h, positions,
+                                      enc_out)
+            recs.append(tg_g.out())
+        return h, _stack_records(recs)
+
+    def _prepare_inputs(self, params, batch, tg, probes, mode):
+        """Embed the tokens (tagged) and run the modality frontend.  Returns
+        (x, positions, labels, mask, enc_out, frontend records)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        t = tokens.shape[1]
+        labels = batch["labels"]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, device=labels.device)
+        x = tg.tag_embed("embed", tokens, params["embed"][tokens.long()],
+                         mask)
+        enc_out, extra = None, {}
+        if cfg.frontend == "audio":
+            enc_out, extra = self._encoder(params, batch["mels"], tg, mode,
+                                           probes)
+            x = x + sinusoid_posemb(t, cfg.d_model, x.device)[None]
+        positions = torch.arange(x.shape[1], device=x.device)
+        return x, positions, labels, mask, enc_out, extra
+
+    def loss(self, params, probes, batch, rng, mode: str = "plain"):
+        """Returns ``((loss_true, loss_sampled), {"recs": records})``;
+        ``rng`` is the head's uniforms (``models/head.py``), None in the
+        plain passes."""
+        cfg = self.cfg
+        tg = Tagger(mode, probes)
+        x, positions, labels, mask, enc_out, extra = self._prepare_inputs(
+            params, batch, tg, probes, mode)
+        h, recs = self._backbone(params, x, positions, mode, probes, enc_out)
+        h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+        lt, ls = lm_head_loss(
+            tg, h, self.head_weight(params), labels, mask, rng,
+            logit_cap=cfg.logit_softcap,
+            name=None if cfg.tie_embeddings else "lm_head")
+        return (lt, ls), {"recs": merge_records(tg.out(), recs, extra)}
+
+    def hidden(self, params, batch):
+        """Final normed hidden states (for exact-Fisher J-products, App C);
+        returns (h, labels, mask)."""
+        x, positions, labels, mask, enc_out, _ = self._prepare_inputs(
+            params, batch, _PLAIN, None, "plain")
+        h, _ = self._backbone(params, x, positions, "plain", None, enc_out)
+        return rms_norm(h, params["final_ln"], self.cfg.norm_eps), labels, mask
+
+    # ------------------------------------------------------------------
+    # probes
+    # ------------------------------------------------------------------
+    def probe_shapes(self, batch) -> Dict[str, tuple]:
+        """Shape of every tagged layer's output (its zero probe), from the
+        batch's shapes alone."""
+        cfg = self.cfg
+        b, t = batch["tokens"].shape
+        t_enc = t_mel = 0
+        if cfg.frontend == "audio":
+            t_mel = batch["mels"].shape[1]
+            t_enc = conv_out_len(t_mel, 3, 2, "SAME")
+        shapes = {}
+        for name, m in self.metas.items():
+            if m.kind == "head":
+                continue
+            if m.kind == "conv":
+                tl = conv_out_len(t_mel, m.conv_spatial[0],
+                                  m.conv_stride[0], m.conv_pad)
+            elif name.startswith("enc.") or name.endswith(
+                    (".cross.k", ".cross.v")):
+                tl = t_enc
+            else:
+                tl = t
+            lead = (m.n_stack,) if m.n_stack else ()
+            shapes[name] = (*lead, b, tl, m.d_out)
+        return shapes
+
+    def make_probes(self, batch) -> Dict[str, torch.Tensor]:
+        """Zero probes that require grad: their gradient is dL/ds."""
+        return {k: torch.zeros(v, device=self.device, requires_grad=True)
+                for k, v in self.probe_shapes(batch).items()}
 
     # ------------------------------------------------------------------
     # serving: prefill + decode

@@ -2,6 +2,12 @@
 ``repro/optimizers/kfac.py`` for ``inv_mode="blkdiag"`` and ``"eigen"``
 (EKFAC) and ``refresh_mode="serial"``, with the exact-F re-scaling
 (``use_rescale=True``) or the fused fixed-lr chain (``use_rescale=False``).
+Models: the MLP autoencoders (``core/fisher.py::quad_logits``) and the LM
+(``quad_lm``; trained so far: whisper, blkdiag with the exact-F
+re-scaling).  Parameters are nested trees (the LM's stacked ``blocks``),
+each tagged weight addressed by its block's ``param_path``; an untagged
+parameter (a norm scale) gets the reference's diagonal curvature, the
+decayed squared gradient, and is preconditioned by ``g / (diag + λ + η)``.
 
 :class:`KFACEngine` holds the stage functions, each a ``state -> state`` map
 over :class:`~repro_torch.core.transform.KFACState`:
@@ -35,7 +41,8 @@ host, as the reference does.
 Random numbers: JAX's stats pass draws its targets from
 ``fold_in(rng, 1)``.  Here ``rng`` is a callable ``shape -> uniforms`` that
 already stands for that stream (the trainer builds it from its ``noise``),
-and only the stats pass draws from it.
+and only the stats pass draws from it (the LM's head turns the uniforms
+into Gumbel noise, ``models/head.py``).
 """
 from __future__ import annotations
 
@@ -62,7 +69,8 @@ def _take(x, idx):
 
 class KFACEngine:
     """model must provide: metas, loss(params, probes, batch, rng, mode),
-    make_probes(batch) and logits(params, x)."""
+    make_probes(batch), plus ``hidden``/``head_weight`` (LM) or ``logits``
+    (MLP)."""
 
     def __init__(self, model, cfg: KFACConfig, family: str = "categorical",
                  device="cuda"):
@@ -71,33 +79,44 @@ class KFACEngine:
         self.cfg = cfg
         self.family = family
         self.metas = model.metas
+        self.is_lm = hasattr(model, "hidden")
+        if self.is_lm and (cfg.inv_mode != "blkdiag" or not cfg.use_rescale):
+            raise NotImplementedError(
+                "eigen mode and the fused fixed-lr chain on an LM are not "
+                "ported yet (only inv_mode='blkdiag' with use_rescale=True)")
         self.tagged = {m.param_path for m in self.metas.values()}
         self.blocks = build_blocks(self.metas, cfg, self.device)
         self.eigen = cfg.inv_mode == "eigen"
 
     def n_tokens(self, batch) -> int:
-        return int(batch["x"].shape[0])
+        """The global N that normalizes every factor: the batch size, or an
+        LM's decoder tokens B·T (the encoder's and the conv stem's factors
+        too, as in the reference)."""
+        if not self.is_lm:
+            return int(batch["x"].shape[0])
+        b, t = batch["tokens"].shape
+        return int(b * t)
 
     def _probes(self, batch):
         return self.model.make_probes(batch)
 
-    def _is_tagged(self, key) -> bool:
-        return (key,) in self.tagged
+    def _is_tagged(self, path) -> bool:
+        return tuple(path) in self.tagged
 
     def _scalar(self, v, dtype=torch.float32):
         return torch.tensor(v, dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------------
     def init(self, params, batch) -> KFACState:
-        untagged = [k for k in params if not self._is_tagged(k)]
-        if untagged:
-            raise NotImplementedError(
-                f"untagged parameters {untagged} (the reference's diagonal "
-                "curvature for them) are not ported yet")
         factors = {name: blk.init_factors()
                    for name, blk in self.blocks.items()}
-        # the reference keeps an empty placeholder for every tagged param
-        diag = {k: torch.zeros(0, device=self.device) for k in params}
+        # diagonal curvature of the untagged params; the reference keeps an
+        # empty placeholder for every tagged one
+        diag = T.tree_map_with_path(
+            lambda path, p: (torch.zeros(0, device=self.device)
+                             if self._is_tagged(path)
+                             else torch.zeros_like(p, dtype=torch.float32)),
+            params)
         cfg = self.cfg
         return KFACState(
             step=self._scalar(0, torch.int32),
@@ -125,15 +144,16 @@ class KFACEngine:
     # ------------------------------------------------------------------
     def stats_grads(self, state: KFACState, params, batch, rng):
         # ---- pass 1: gradients on the full batch (plain mode) ----
-        p1 = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        p1 = T.tree_map(lambda v: v.detach().requires_grad_(True), params)
         (lt, _), _ = self.model.loss(p1, None, batch, None, mode="plain")
-        grads = dict(zip(p1, torch.autograd.grad(lt, list(p1.values()))))
+        grads = T.tree_unflatten_like(params, torch.autograd.grad(
+            lt, T.tree_leaves(p1)))
         lt = lt.detach()
 
         # ---- pass 2: statistics with sampled targets ----
         probes = self._probes(batch)
         n = self.n_tokens(batch)
-        frozen = {k: v.detach() for k, v in params.items()}
+        frozen = T.tree_map(torch.Tensor.detach, params)
         (_, ls), aux = self.model.loss(frozen, probes, batch, rng,
                                        mode="collect")
         gprobes = dict(zip(probes, torch.autograd.grad(
@@ -144,10 +164,19 @@ class KFACEngine:
         eps = F.decay_eps(k, self.cfg.decay_cap)
         factors = {
             name: blk.update_factors(state.factors[name], recs[name],
-                                     gprobes[name], n, eps)
+                                     gprobes.get(name), n, eps)
             for name, blk in self.blocks.items()}
 
-        state = state.replace(factors=factors, k_stats=k, loss_prev=lt)
+        # diagonal running curvature of the untagged params: squared
+        # gradients (the norm scales, well under 1% of an LM's parameters)
+        diag = T.tree_map_with_path(
+            lambda path, g, old: (old if self._is_tagged(path)
+                                  else eps * old
+                                  + (1.0 - eps) * torch.square(g.float())),
+            grads, state.diag)
+
+        state = state.replace(factors=factors, diag=diag, k_stats=k,
+                              loss_prev=lt)
         return state, grads, {"loss": lt, "loss_sampled": ls.detach()}
 
     # ------------------------------------------------------------------
@@ -188,8 +217,9 @@ class KFACEngine:
         if not self.eigen:
             return state
         eps = self._scalar(self.cfg.eigen_decay)
-        inv = {name: blk.rescale_step(state.inv[name],
-                                      grads[blk.meta.param_path[0]], eps)
+        inv = {name: blk.rescale_step(
+                   state.inv[name], T.get_path(grads, blk.meta.param_path),
+                   eps)
                for name, blk in self.blocks.items()}
         return state.replace(inv=inv)
 
@@ -202,13 +232,19 @@ class KFACEngine:
     # ------------------------------------------------------------------
     # preconditioning
     # ------------------------------------------------------------------
-    def _precondition(self, grads_reg, inv):
-        out = {}
+    def _precondition(self, grads_reg, inv, state: KFACState):
+        lam_eta = state.lam + self.cfg.eta
+        # untagged params: diagonal curvature
+        out = T.tree_map_with_path(
+            lambda path, g, d: (g if self._is_tagged(path)
+                                else g / (d + lam_eta)),
+            grads_reg, state.diag)
         for name, blk in self.blocks.items():
-            (key,) = blk.meta.param_path
-            out[key] = (blk.precondition_eigen(inv[name], grads_reg[key])
-                        if self.eigen
-                        else blk.precondition(inv[name], grads_reg[key]))
+            path = blk.meta.param_path
+            v = T.get_path(grads_reg, path)
+            u = (blk.precondition_eigen(inv[name], v) if self.eigen
+                 else blk.precondition(inv[name], v))
+            out = T.set_path(out, path, u)
         return T.tree_scale(out, -1.0)
 
     # ------------------------------------------------------------------
@@ -224,14 +260,17 @@ class KFACEngine:
         grads_reg = T.tree_axpy(cfg.eta, T.tree_map(torch.Tensor.float, params),
                                 T.tree_map(torch.Tensor.float, grads))
 
-        deltas = [self._precondition(grads_reg, inv) for inv in invs]
+        deltas = [self._precondition(grads_reg, inv, state) for inv in invs]
         use_mom = cfg.use_momentum
         tangents = deltas + ([state.delta0] if use_mom else [])
         m = len(tangents)
 
         lam_eta = state.lam + cfg.eta
-        q = FI.quad_logits(lambda p: self.model.logits(p, batch["x"]),
-                           params, batch, tangents, self.family)
+        if self.is_lm:
+            q = FI.quad_lm(self.model, params, batch, tangents)
+        else:
+            q = FI.quad_logits(lambda p: self.model.logits(p, batch["x"]),
+                               params, batch, tangents, self.family)
         dots = torch.stack([torch.stack([T.tree_dot(tangents[i], tangents[j])
                                          for j in range(m)])
                             for i in range(m)])
@@ -272,7 +311,7 @@ class KFACEngine:
         delta = T.tree_scale(delta_sel, alpha)
         if use_mom:
             delta = T.tree_axpy(mu, state.delta0, delta)
-        new_params = {k: p + delta[k].to(p.dtype) for k, p in params.items()}
+        new_params = T.tree_map(lambda p, d: p + d.to(p.dtype), params, delta)
 
         state = state.replace(step=state.step + 1, delta0=delta,
                               m_delta=m_delta, inv=inv_sel, gamma=gamma_new)
@@ -304,13 +343,25 @@ class KFACEngine:
         mu = self._scalar(cfg.fixed_momentum)
         grads_reg = T.tree_axpy(cfg.eta, T.tree_map(torch.Tensor.float, params),
                                 T.tree_map(torch.Tensor.float, grads))
-        vel, sqs = {}, []
+        lam_eta = state.lam + cfg.eta
+        sqs = []
+
+        # untagged params: diagonal curvature, axpy'd in the same traversal
+        def leaf(path, g, dd, mom):
+            if self._is_tagged(path):
+                return mom            # overwritten by the block loop below
+            d = alpha * (g / (dd + lam_eta)) + mu * mom
+            sqs.append(torch.sum(d * d))
+            return d
+
+        vel = T.tree_map_with_path(leaf, grads_reg, state.diag, state.delta0)
         for name, blk in self.blocks.items():
-            (key,) = blk.meta.param_path
-            vel[key], sq = blk.precond_momentum(
-                inv[name], grads_reg[key], state.delta0[key], alpha, mu,
-                eigen=self.eigen)
+            path = blk.meta.param_path
+            d, sq = blk.precond_momentum(
+                inv[name], T.get_path(grads_reg, path),
+                T.get_path(state.delta0, path), alpha, mu, eigen=self.eigen)
             sqs.append(sq)
+            vel = T.set_path(vel, path, d)
         norm = torch.sqrt(sum(sqs))
         clip = cfg.kl_clip > 0 or cfg.clip_delta_norm > 0
         factor = self._scalar(1.0)
@@ -326,11 +377,12 @@ class KFACEngine:
             factor = factor * torch.clamp(
                 cfg.clip_delta_norm / torch.clamp(norm, min=1e-20), max=1.0)
         if clip:
-            new_params = {k: p + (factor * vel[k]).to(p.dtype)
-                          for k, p in params.items()}
+            new_params = T.tree_map(lambda p, d: p + (factor * d).to(p.dtype),
+                                    params, vel)
             delta_norm = factor * norm
         else:
-            new_params = {k: p + vel[k].to(p.dtype) for k, p in params.items()}
+            new_params = T.tree_map(lambda p, d: p + d.to(p.dtype), params,
+                                    vel)
             delta_norm = norm
 
         m_delta = self._scalar(-1.0)

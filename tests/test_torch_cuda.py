@@ -145,7 +145,7 @@ def test_three_full_width_trainer_steps():
                             "matmul_rescale": 0, "rotate_rescale": 0,
                             "axpy_momentum": 0, "precond_momentum": 0,
                             "flash_decode": 0, "flash_decode_paged": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "patch_factor": 0}
 
 
 def test_matmul_transposed_views_on_card():
@@ -253,13 +253,13 @@ LAUNCHES = {
               "matmul": 3 * 24, "matmul_rescale": 24, "rotate_rescale": 24,
               "axpy_momentum": 0, "precond_momentum": 0,
               "flash_decode": 0, "flash_decode_paged": 0,
-              "flash_attention": 0},
+              "flash_attention": 0, "patch_factor": 0},
     "fused": {"factor_update": 48, "precondition": 0,
               "ns_step": 3 * 16 * 12, "matmul": 2 * 3 * 16 * 12 + 24,
               "matmul_rescale": 0, "rotate_rescale": 0,
               "axpy_momentum": 24, "precond_momentum": 24,
               "flash_decode": 0, "flash_decode_paged": 0,
-              "flash_attention": 0},
+              "flash_attention": 0, "patch_factor": 0},
 }
 
 
@@ -500,3 +500,90 @@ def test_flash_attention_wrapper_raises_on_bad_operands():
         with pytest.raises((TypeError, ValueError)):
             call()
     assert FA.flash_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# whisper's K-FAC training: patch_factor, the batched factor_update, and a
+# reduced run on the card against the same run on the CPU
+# ---------------------------------------------------------------------------
+
+PATCH_CASES = [  # b, t, c, k, stride, padding, bias
+    (2, 21, 13, 3, 1, "SAME", True), (1, 131, 8, 4, 1, "VALID", False),
+    (2, 31, 8, 3, 2, "SAME", True), (2, 8, 8, 9, 1, "SAME", True),
+    (2, 2, 8, 3, 1, "VALID", True), (3, 100, 136, 3, 2, "SAME", True),
+    (8, 3000, 80, 3, 1, "SAME", True),      # whisper-small conv1
+    (8, 3000, 768, 3, 2, "SAME", True)]     # whisper-small conv2
+
+
+@pytest.mark.parametrize("case", PATCH_CASES)
+def test_patch_factor_on_card(case):
+    """Ragged cases and whisper-small's two conv shapes, at beta = 0 and
+    0.95, held to the scale of alpha * P̂ᵀP̂ alone."""
+    from repro_torch.kernels.patch_factor import (patch_factor_update,
+                                                  patch_factor_update_ref)
+    b, t, c, k, s, pad, bias = case
+    g = _card()
+    x = torch.randn(b, t, c, generator=g, device="cuda")
+    d = k * c + int(bias)
+    old = _spd(g, d)
+    kw = dict(taps=k, stride=s, padding=pad, has_bias=bias)
+    for e in (0.0, 0.95):
+        eps = torch.tensor(e, device="cuda")
+        a = (1 - eps) / 512
+        before = patch_factor_update.launches
+        got = patch_factor_update(x, old, alpha=a, beta=eps, **kw)
+        assert patch_factor_update.launches == before + 1
+        prod = patch_factor_update_ref(x, old, alpha=a, beta=0.0, **kw)
+        _close(got, patch_factor_update_ref(x, old, alpha=a, beta=eps, **kw),
+               scale=max(prod.abs().max().item(), 1e-30))
+
+
+@pytest.mark.parametrize("s,n,d", [(12, 12000, 768), (12, 512, 3072),
+                                   (2, 64, 48), (3, 100, 33)])
+def test_factor_update_batched_on_card(s, n, d):
+    """The stacked layers' (S, N, d) records in one launch."""
+    g = _card()
+    x = torch.tanh(torch.randn(s, n, d, generator=g, device="cuda"))
+    c = torch.stack([_spd(g, d) for _ in range(s)])
+    eps = torch.tensor(0.75, device="cuda")
+    a = (1 - eps) / n
+    before = factor_update.launches
+    got = factor_update(x, c, alpha=a, beta=eps)
+    assert factor_update.launches == before + 1
+    prod = factor_update_ref(x, c, alpha=a, beta=0.0)
+    _close(got, factor_update_ref(x, c, alpha=a, beta=eps),
+           scale=prod.abs().max().item())
+
+
+def test_reduced_whisper_training_cuda_vs_cpu():
+    """Four K-FAC steps of reduced whisper through the launcher's pieces on
+    the card and on the CPU, same weights and noise: losses within rtol
+    1e-3, and every kernel of the path launched (patch_factor twice a
+    step)."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.train import _ArchData
+    _card()
+    cfg = get_reduced_config("whisper-small")
+    kcfg = KFACConfig(lambda_init=10.0, t3=5)
+    hist = {}
+    for where in ("cuda", "cpu"):
+        lm = LM(cfg, device=where)
+        params = tree_map(lambda p: p.to(where), LM(cfg, device="cpu").
+                          init_params(torch.Generator().manual_seed(0)))
+        data = _ArchData(cfg, SyntheticLMData(cfg.vocab_size, 64, 8,
+                                              device=where))
+        noise = lambda step, shape, where=where: torch.rand(
+            shape, generator=torch.Generator().manual_seed(step)).to(where)
+        tr = Trainer(lm, kfac(lm, kcfg, device=where), TrainConfig(),
+                     noise=noise, device=where)
+        K.reset_launches()
+        hist[where] = [h["loss"] for h in tr.fit(
+            params, data, steps=4, log=lambda *_: None)["history"]]
+        if where == "cuda":
+            n = K.launches()
+            assert n["patch_factor"] == 2 * 4, n
+            for name in ("factor_update", "precondition", "ns_step",
+                         "matmul"):
+                assert n[name] > 0, (name, n)
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        assert a == pytest.approx(b, rel=1e-3), hist

@@ -84,3 +84,20 @@ def test_serving_entry_points_refuse_cuda_without_a_card():
     rep = serve.main(["--reduced", "--device", "cpu", "--requests", "2",
                       "--max_new", "3"])
     assert len(rep.completed) == 2
+
+
+def test_train_launcher_refuses_cuda_without_a_card():
+    """``launch/train.py`` defaults to ``--device cuda`` and raises without
+    a card; with ``--device cpu`` it trains reduced whisper (3 steps)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--reduced", "--steps", "1"], log=lambda *_: None)
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "whisper-small", "--reduced", "--steps", "3", "--device", "cpu"],
+        env=dict(os.environ, PYTHONPATH=str(PKG.parent)),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "[train] done: loss" in out.stdout, out.stdout

@@ -28,6 +28,7 @@ from repro_torch.kernels import factor_update as FU
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import matmul as MM
 from repro_torch.kernels import ns_step as NS
+from repro_torch.kernels import patch_factor as PF
 from repro_torch.kernels import precond as PC
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -165,12 +166,17 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
     q, kv = _t(_u(39, 1, 4, 9, 16)), _t(_u(40, 1, 2, 9, 16))
     assert torch.equal(FA.flash_attention(q, kv, kv, window=4, cap=5.0),
                        FA.flash_attention_ref(q, kv, kv, window=4, cap=5.0))
+    xc, fc = _t(_u(41, 2, 9, 5)), _t(_u(42, 16, 16))
+    kw = dict(taps=3, stride=2, padding="SAME", has_bias=True,
+              alpha=1 - eps, beta=eps)
+    assert torch.equal(PF.patch_factor_update(xc, fc, **kw),
+                       PF.patch_factor_update_ref(xc, fc, **kw))
     assert K.launches() == {"matmul": 0, "factor_update": 0,
                             "precondition": 0, "ns_step": 0,
                             "matmul_rescale": 0, "rotate_rescale": 0,
                             "axpy_momentum": 0, "precond_momentum": 0,
                             "flash_decode": 0, "flash_decode_paged": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "patch_factor": 0}
 
 
 def test_factor_update_split_policy():

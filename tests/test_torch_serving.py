@@ -588,3 +588,12 @@ def test_step_logits_teacher_forced_on_jax_engine_tokens(arch, route,
         assert got.shape == want.shape, (kind, got.shape, want.shape)
         err, scale = np.abs(got - want).max(), np.abs(want).max()
         assert np.isfinite(err) and err <= TOL * scale, (kind, err, scale)
+
+
+def test_whisper_serving_refused():
+    """Serving the encoder-decoder waits for its slice (the port trains
+    whisper): the engine refuses it when it builds its pools."""
+    cfg = get_reduced_config("whisper-small")
+    tl = LM(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder"):
+        Engine(tl, tl.init_params(), batch_slots=1, max_len=16)
