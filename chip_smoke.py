@@ -47,7 +47,13 @@ on failure (nothing is caught):
             stride 2, VALID without bias) and at whisper-small's conv
             stems, x (8, 3000, 80) k 3 s 1 and x (8, 3000, 768) k 3 s 2
             ("SAME"), and timed there beside its plain version and
-            unfold + addmm.
+            unfold + addmm; also with a C that is not symmetric (alpha =
+            1 - eps) at a ragged case, d = 65 and 129 and conv2.
+            matmul_rescale also at the main loop's edges: K = N = 30 and
+            250 (4-byte copies), a B off a 16-byte boundary and a split K.
+            Both print their share of the bound and achieved TFLOP/s
+            (``tools/plan_sweep.py`` times the launch plans their planner
+            weighs; it is not a phase of this script).
 4. agree    the reduced autoencoder (64-32-16-8 mirrored, N = 256) for 6
             K-FAC steps on the card and on the CPU (plain versions), same
             weights and uniforms, on each path: losses within rtol 1e-3.
@@ -695,6 +701,7 @@ def patch_kernel_row(dev, g) -> dict:
     whisper-small's two conv shapes, at beta = 0 and 0.95 (the
     factor_update rule: within TOL * max|alpha * P̂ᵀP̂|), then timed at the
     two whisper shapes beside the plain version and unfold + addmm."""
+    from repro_torch.kernels.gemm_plan import sm_count, triangle_plan
     from repro_torch.kernels.patch_factor import (patch_factor_update,
                                                   patch_factor_update_ref,
                                                   patch_geometry)
@@ -716,11 +723,37 @@ def patch_kernel_row(dev, g) -> dict:
                     errs, scale=max(prod.abs().max().item(), 1e-30))
         if t == 3000:
             ops.append((x, old, kw))
+    # one triangle plus a mirror: a C that is not symmetric, so each
+    # mirrored entry must take its own C entry (alpha = 1 - eps: an entry
+    # read from the wrong side of C stands far above the tolerance), at a
+    # ragged case, at d = 65 and 129 (one more than a tile multiple: the
+    # bias feature folded into the last tile column) and at conv2
+    ge = torch.Generator(device=dev).manual_seed(3)  # g's draws unchanged
+    for b, t, c, k, s, pad, bias in [PATCH_CASES[0],
+                                      (2, 40, 16, 4, 1, "SAME", True),
+                                      (1, 50, 32, 4, 2, "SAME", True),
+                                      PATCH_CASES[-1]]:
+        x = torch.randn(b, t, c, generator=ge, device=dev)
+        d = k * c + int(bias)
+        old = torch.randn(d, d, generator=ge, device=dev)
+        kw = dict(taps=k, stride=s, padding=pad, has_bias=bias)
+        plan = triangle_plan(d, k * c, bias, b * patch_geometry(
+            x.shape, k, s, pad)[1], sm_count(0))
+        eps = torch.tensor(0.95, device=dev)
+        prod = patch_factor_update_ref(x, old, alpha=1 - eps, beta=0.0, **kw)
+        compare(f"patch_factor C not symmetric x{(b, t, c)} tile "
+                f"{plan.tile} fold {int(plan.fold)} splits {plan.splits}",
+                patch_factor_update(x, old, alpha=1 - eps, beta=eps, **kw),
+                patch_factor_update_ref(x, old, alpha=1 - eps, beta=eps,
+                                        **kw),
+                errs, scale=max(prod.abs().max().item(), 1e-30))
+        del x, old, prod
     eps = torch.tensor(0.95, device=dev)
     run = lambda f: [f(x, old, alpha=(1 - eps) / WHISPER_N, beta=eps, **kw)
                      for x, old, kw in ops]
     # P̂ᵀP̂ is symmetric, so the function needs only its d(d+1)/2 distinct
-    # entries, 2N operations each; the kernel computes all d².
+    # entries, 2N operations each; the kernel computes one triangle of tiles
+    # (the diagonal tiles whole).
     flops = nbytes = full = 0.0
     for x, old, kw in ops:
         n = x.shape[0] * patch_geometry(x.shape, kw["taps"], kw["stride"],
@@ -1129,6 +1162,131 @@ def profile_serving(label, lm, params, reqs, profile_prefill=False,
     return out
 
 
+def ae_paths() -> dict:
+    """The autoencoder's three K-FAC paths (phase 5)."""
+    from repro_torch.configs.base import KFACConfig
+    base = dict(lambda_init=3.0, t3=5, eta=1e-5)
+    return {
+        "blkdiag": KFACConfig(inv_mode="blkdiag", inverse_method="ns",
+                              **base),
+        "eigen": KFACConfig(inv_mode="eigen", **base),
+        "fused": KFACConfig(inv_mode="blkdiag", inverse_method="ns",
+                            use_rescale=False, fixed_lr=0.02,
+                            fixed_momentum=0.9, kl_clip=1e-3, **base),
+    }
+
+
+def ae_model():
+    """The full-width autoencoder, its weights from seed 0 and its N = 8192
+    synthetic batch, on the card."""
+    from repro_torch.configs.autoencoder import CONFIG
+    from repro_torch.data.pipeline import SyntheticAutoencoderData
+    from repro_torch.models.mlp import MLP, autoencoder_dims
+    dims = autoencoder_dims(CONFIG)
+    mlp = MLP(dims, device="cuda")
+    params = mlp.init_params(torch.Generator().manual_seed(0))
+    data = SyntheticAutoencoderData(dims[0], 8, N_ROWS, seed=7,
+                                    device="cuda")
+    return mlp, params, data
+
+
+# schedule of 25 steps: refreshes at steps 0, 1, 2 (warmup), 5, 10, 15 (T3)
+# and the gamma sweep at 20 (3 candidates: batched into the NS launches; one
+# rotate_rescale per candidate and layer in eigen mode; the fused path
+# applies candidate 0 only)
+AE_STEPS, AE_REFRESH, AE_SWEEP, AE_N_REFRESH = 25, (1, 2, 5, 10, 15), 20, 7
+
+
+def autoencoder_main(label: str, steps: int = AE_STEPS, mlp=None,
+                     params=None, data=None) -> dict:
+    """``Trainer.fit`` of the full-width autoencoder on one path (phase 5),
+    the launch counters zeroed just before and read just after: exact
+    counts, the loss finite and falling, per-step host times and peak
+    memory.  ``python3 -c 'import chip_smoke as c; c.autoencoder_main(
+    "eigen")'`` runs one path alone, in a process of its own (the A/B of
+    two checkouts)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optimizers.kfac import kfac
+    from repro_torch.training.trainer import Trainer
+    if mlp is None:
+        mlp, params, data = ae_model()
+    paths = ae_paths()
+    cfg = paths[label]
+    zero = {name: 0 for name in K.WRAPPERS}
+    ns = AE_N_REFRESH * 16 * paths["blkdiag"].ns_iters
+    want = {"blkdiag": dict(zero, factor_update=16 * steps,
+                            precondition=8 * steps + 2 * 8, ns_step=ns,
+                            matmul=2 * (8 * steps + 2 * 8 + ns)),
+            "eigen": dict(zero, factor_update=16 * steps,
+                          rotate_rescale=8 * steps + 2 * 8,
+                          matmul_rescale=8 * steps + 2 * 8,
+                          matmul=3 * (8 * steps + 2 * 8)),
+            "fused": dict(zero, factor_update=16 * steps, ns_step=ns,
+                          precond_momentum=8 * steps,
+                          axpy_momentum=8 * steps,
+                          matmul=2 * ns + 8 * steps)}[label]
+    step_ms = []
+    trainer = Trainer(mlp, timed(kfac(mlp, cfg, family="bernoulli",
+                                      device="cuda"), step_ms),
+                      TrainConfig(steps=steps, seed=0, log_every=5),
+                      device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    K.reset_launches()
+    out = trainer.fit(params, data, steps=steps,
+                      log=lambda msg: print(f"  {msg}"))
+    torch.cuda.synchronize()
+    launches = K.launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in out["history"]]
+    srt = sorted(step_ms)
+    plain = sorted(t for i, t in enumerate(step_ms)
+                   if i not in (0, AE_SWEEP, *AE_REFRESH))
+    print(f"[main:{label}] full width {mlp.dims}, N={N_ROWS}, {steps} steps")
+    print(f"  per-step ms: {[round(t, 3) for t in step_ms]}")
+    print(f"  step ms: median {srt[len(srt) // 2]:.3f}, min {srt[0]:.3f}"
+          f", max {srt[-1]:.3f}; plain-step median "
+          f"{plain[len(plain) // 2]:.3f}; refresh steps "
+          f"{[round(step_ms[i], 3) for i in AE_REFRESH]}; sweep step "
+          f"{step_ms[AE_SWEEP]:.3f}; peak memory "
+          f"{peak / 2 ** 20:.1f} MiB, of which "
+          f"{resident / 2 ** 20:.1f} MiB was allocated before the run")
+    print(f"  losses: first {losses[0]:.4f}, last {losses[-1]:.4f}")
+    print(f"  launches: {launches}")
+    if (not all(math.isfinite(v) for v in losses)
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: loss not finite and falling: "
+                             f"{losses}")
+    clipped = cfg.kl_clip > 0 or cfg.clip_delta_norm > 0
+    nus = [h.get("nu") for h in out["history"]] if clipped else []
+    norms = [h["delta_norm"] for h in out["history"]] if clipped else []
+    if clipped:
+        print(f"  nu per step: {[round(v, 6) for v in nus]}")
+        print(f"  applied |delta| per step: "
+              f"{[float(f'{v:.4e}') for v in norms]}")
+        if not all(v is not None and 0.0 < v <= 1.0 for v in nus):
+            raise AssertionError(f"{label}: clip factor nu outside "
+                                 f"(0, 1]: {nus}")
+        if not all(math.isfinite(v) and v > 0.0 for v in norms):
+            raise AssertionError(f"{label}: applied step norm not finite "
+                                 f"and positive: {norms}")
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches}, "
+                             f"expected {want}")
+    return {
+        "steps": steps, "n_rows": N_ROWS, "step_ms": step_ms,
+        "step_ms_median": srt[len(srt) // 2], "step_ms_min": srt[0],
+        "step_ms_max": srt[-1],
+        "plain_step_ms_median": plain[len(plain) // 2],
+        "refresh_step_ms": {i: step_ms[i] for i in AE_REFRESH},
+        "sweep_step_ms": step_ms[AE_SWEEP],
+        "peak_mem_bytes": peak, "resident_bytes_before": resident,
+        "losses": losses, "launches": launches,
+        **({"nu": nus, "delta_norm": norms} if clipped else {})}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. device ---------------------------------------------------
@@ -1144,14 +1302,15 @@ def main() -> None:
     print(f"[device] {kind} x{count}; nvidia-smi: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}; tf32 off")
 
-    from repro_torch import kernels as K
     from repro_torch.configs.autoencoder import CONFIG, reduced
-    from repro_torch.configs.base import KFACConfig, TrainConfig
+    from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticAutoencoderData
     from repro_torch.kernels import _build
     from repro_torch.kernels.factor_update import (factor_update,
                                                    factor_update_ref)
-    from repro_torch.kernels.matmul import matmul, matmul_ref
+    from repro_torch.kernels.gemm_plan import dense_plan as mr_plan
+    from repro_torch.kernels.gemm_plan import sm_count
+    from repro_torch.kernels.matmul import matmul, matmul_ref, operands
     from repro_torch.kernels.ns_step import (ns_inverse, ns_inverse_ref,
                                              ns_step, ns_step_ref)
     from repro_torch.kernels.precond import precondition, precondition_ref
@@ -1159,6 +1318,7 @@ def main() -> None:
                                                     matmul_rescale_ref,
                                                     rotate_rescale,
                                                     rotate_rescale_ref)
+    from repro_torch.kernels.rotate_rescale import vec16 as mr_vec16
     from repro_torch.kernels.update_chain import (axpy_momentum,
                                                   axpy_momentum_ref,
                                                   precond_momentum,
@@ -1349,6 +1509,27 @@ def main() -> None:
     compare(f"matmul_rescale batched x3 {tuple(t3.shape)}",
             matmul_rescale(t3, qg, s3, lam),
             matmul_rescale_ref(t3, qg, s3, lam), errs_mr)
+    # the main loop's edges: K = N = 30 and 250 (4-byte copies of B), a B
+    # one float off a 16-byte boundary (4-byte copies at N = 1000), and the
+    # split K of (251, 500) @ (500, 500); each case's plan is printed
+    plans = set()
+    ge = torch.Generator(device=dev).manual_seed(2)  # g's draws unchanged
+    for m_, k_, off in [(251, 30, 0), (501, 250, 0), (785, 1000, 1),
+                        (251, 500, 0)]:
+        t = torch.randn(m_, k_, generator=ge, device=dev)
+        q = torch.randn(k_ * k_ + off, generator=ge,
+                        device=dev)[off:].view(k_, k_)
+        sd_ = torch.rand(m_, k_, generator=ge, device=dev) + 0.05
+        vec = mr_vec16(operands("matmul_rescale", t, q, sd_))
+        plan = mr_plan(1, m_, k_, k_, sm_count(0))
+        plans.add((plan.splits > 1, vec))
+        compare(f"matmul_rescale ({m_},{k_}) b+{off} splits {plan.splits} "
+                f"vec16 {int(vec)}",
+                matmul_rescale(t, q, sd_, lam),
+                matmul_rescale_ref(t, q, sd_, lam), errs_mr)
+    if not {(True, True), (False, False)} <= plans:
+        raise AssertionError(f"matmul_rescale edge cases missed a plan: "
+                             f"{plans}")
     mids = [(qa.T @ v, qg, sd) for qa, v, qg, sd in eops]
     rr = lambda f: [f(*o, lam) for o in eops]
     rows["rotate_rescale"] = dict(
@@ -1467,22 +1648,18 @@ def main() -> None:
     print(f"  factor_update bound of the full (d, d) product, as the kernel "
           f"computes it: {rows['factor_update']['full_product_bound_ms']:.4f}"
           f" ms")
-    print(f"  patch_factor bound of the full (d, d) product, as the kernel "
-          f"computes it: {rows['patch_factor']['full_product_bound_ms']:.4f}"
-          f" ms")
+    print(f"  patch_factor bound of the full (d, d) product: "
+          f"{rows['patch_factor']['full_product_bound_ms']:.4f} ms")
+    for name in ("matmul_rescale", "patch_factor"):
+        r = rows[name]
+        print(f"  {name}: {r['bound'][0] / r['ms']:.1%} of its bound, "
+              f"{r['bound'][0] * FP32_FLOPS / 1e12 / r['ms']:.2f} TFLOP/s "
+              f"(the bound's operations over the device time)")
 
     print(f"[time] kernels phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
     # ---- 4. agreement with the plain path on a small input -----------
-    base = dict(lambda_init=3.0, t3=5, eta=1e-5)
-    paths = {
-        "blkdiag": KFACConfig(inv_mode="blkdiag", inverse_method="ns",
-                              **base),
-        "eigen": KFACConfig(inv_mode="eigen", **base),
-        "fused": KFACConfig(inv_mode="blkdiag", inverse_method="ns",
-                            use_rescale=False, fixed_lr=0.02,
-                            fixed_momentum=0.9, kl_clip=1e-3, **base),
-    }
+    paths = ae_paths()
     small = autoencoder_dims(reduced())
     for label, cfg in paths.items():
         hist = {}
@@ -1514,91 +1691,12 @@ def main() -> None:
     print(f"[time] agree phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
     # ---- 5. the main paths -------------------------------------------
-    steps = 25
-    mlp = MLP(dims, device="cuda")
-    params = mlp.init_params(torch.Generator().manual_seed(0))
-    data = SyntheticAutoencoderData(dims[0], 8, N_ROWS, seed=7,
-                                    device="cuda")
-    # schedule: refreshes at steps 0, 1, 2 (warmup), 5, 10, 15 (T3) and the
-    # gamma sweep at 20 (3 candidates: batched into the NS launches; one
-    # rotate_rescale per candidate and layer in eigen mode; the fused path
-    # applies candidate 0 only)
-    refresh_steps, sweep_step, n_refresh = (1, 2, 5, 10, 15), 20, 7
-    zero = {name: 0 for name in K.WRAPPERS}
-    ns = n_refresh * 16 * paths["blkdiag"].ns_iters
-    want = {"blkdiag": dict(zero, factor_update=16 * steps,
-                            precondition=8 * steps + 2 * 8, ns_step=ns,
-                            matmul=2 * (8 * steps + 2 * 8 + ns)),
-            "eigen": dict(zero, factor_update=16 * steps,
-                          rotate_rescale=8 * steps + 2 * 8,
-                          matmul_rescale=8 * steps + 2 * 8,
-                          matmul=3 * (8 * steps + 2 * 8)),
-            "fused": dict(zero, factor_update=16 * steps, ns_step=ns,
-                          precond_momentum=8 * steps,
-                          axpy_momentum=8 * steps,
-                          matmul=2 * ns + 8 * steps)}
+    steps = AE_STEPS
+    mlp, params, data = ae_model()
     main_out, launches_by_path, profiles = {}, {}, {}
-    for label, cfg in paths.items():
-        step_ms = []
-        trainer = Trainer(mlp, timed(kfac(mlp, cfg, family="bernoulli",
-                                          device="cuda"), step_ms),
-                          TrainConfig(steps=steps, seed=0, log_every=5),
-                          device="cuda")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        resident = torch.cuda.memory_allocated()
-        K.reset_launches()
-        out = trainer.fit(params, data, steps=steps,
-                          log=lambda msg: print(f"  {msg}"))
-        torch.cuda.synchronize()
-        launches = K.launches()
-        peak = torch.cuda.max_memory_allocated()
-        losses = [h["loss"] for h in out["history"]]
-        srt = sorted(step_ms)
-        plain = sorted(t for i, t in enumerate(step_ms)
-                       if i not in (0, sweep_step, *refresh_steps))
-        print(f"[main:{label}] full width {dims}, N={N_ROWS}, {steps} steps")
-        print(f"  per-step ms: {[round(t, 3) for t in step_ms]}")
-        print(f"  step ms: median {srt[len(srt) // 2]:.3f}, min {srt[0]:.3f}"
-              f", max {srt[-1]:.3f}; plain-step median "
-              f"{plain[len(plain) // 2]:.3f}; refresh steps "
-              f"{[round(step_ms[i], 3) for i in refresh_steps]}; sweep step "
-              f"{step_ms[sweep_step]:.3f}; peak memory "
-              f"{peak / 2 ** 20:.1f} MiB, of which "
-              f"{resident / 2 ** 20:.1f} MiB was allocated before the run")
-        print(f"  losses: first {losses[0]:.4f}, last {losses[-1]:.4f}")
-        print(f"  launches: {launches}")
-        if (not all(math.isfinite(v) for v in losses)
-                or not losses[-1] < losses[0]):
-            raise AssertionError(f"{label}: loss not finite and falling: "
-                                 f"{losses}")
-        clipped = cfg.kl_clip > 0 or cfg.clip_delta_norm > 0
-        nus = [h.get("nu") for h in out["history"]] if clipped else []
-        norms = [h["delta_norm"] for h in out["history"]] if clipped else []
-        if clipped:
-            print(f"  nu per step: {[round(v, 6) for v in nus]}")
-            print(f"  applied |delta| per step: "
-                  f"{[float(f'{v:.4e}') for v in norms]}")
-            if not all(v is not None and 0.0 < v <= 1.0 for v in nus):
-                raise AssertionError(f"{label}: clip factor nu outside "
-                                     f"(0, 1]: {nus}")
-            if not all(math.isfinite(v) and v > 0.0 for v in norms):
-                raise AssertionError(f"{label}: applied step norm not finite "
-                                     f"and positive: {norms}")
-        if launches != want[label]:
-            raise AssertionError(f"{label}: launch counts {launches}, "
-                                 f"expected {want[label]}")
-        launches_by_path[label] = launches
-        main_out[label] = {
-            "steps": steps, "n_rows": N_ROWS, "step_ms": step_ms,
-            "step_ms_median": srt[len(srt) // 2], "step_ms_min": srt[0],
-            "step_ms_max": srt[-1],
-            "plain_step_ms_median": plain[len(plain) // 2],
-            "refresh_step_ms": {i: step_ms[i] for i in refresh_steps},
-            "sweep_step_ms": step_ms[sweep_step],
-            "peak_mem_bytes": peak, "resident_bytes_before": resident,
-            "losses": losses, "launches": launches,
-            **({"nu": nus, "delta_norm": norms} if clipped else {})}
+    for label in paths:
+        main_out[label] = autoencoder_main(label, steps, mlp, params, data)
+        launches_by_path[label] = main_out[label]["launches"]
 
     print(f"[time] main phase done at "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -25,22 +25,7 @@
 // all n).  A batch fills the card with batch times the tiles, so it takes
 // no split.
 #include "gemm_tile.cuh"
-
-namespace {
-
-__global__ void sum_partials_kernel(const float* __restrict__ ws, int splits,
-                                    long long dd, const float* __restrict__ c,
-                                    const float* __restrict__ ab,
-                                    float* __restrict__ out) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (i >= dd) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += ws[z * dd + i];
-  out[i] = fmaf(ab[1], c[i], ab[0] * s);
-}
-
-}  // namespace
+#include "sum_partials.cuh"
 
 extern "C" int repro_factor_update_f32(const float* x, const float* c,
                                        float* out, float* ws, int batch,

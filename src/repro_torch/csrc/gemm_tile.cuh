@@ -3,7 +3,6 @@
 //
 //   matmul.cu          O[b] = alpha * A[b] @ B[b] + beta * C[b]    (kAxpby)
 //   factor_update.cu   O    = alpha * X^T X      + beta * C        (kAxpby)
-//   rotate_rescale.cu  O[b] = (A[b] @ B[b]) / (C[b] + alpha)       (kRescale)
 //   update_chain.cu    O    = alpha * A @ B + beta * C, + sum O^2  (kAxpyNorm)
 //
 // Design (simple and correct first): a 64 x 64 output tile per block of 256
@@ -44,7 +43,6 @@ constexpr int kThreads = 256;  // (kBM / kTM) * (kBN / kTN)
 
 enum Epilogue : int {
   kAxpby,     // O = alpha * acc + beta * C (C may be null)
-  kRescale,   // O = acc / (C + alpha): the damped eigenbasis rescale
   kAxpyNorm,  // O = alpha * acc + beta * C, and the block's sum of O^2
               // over its valid entries into partials[z][y][x]: a
               // warp-shuffle tree, then the 8 warp sums in a fixed order,
@@ -138,13 +136,8 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
       const int gn = col0 + tx * kTN + j;
       if (gn >= N) continue;
       const long long o = (long long)gm * N + gn;
-      float v;
-      if constexpr (EPI == kRescale) {
-        v = acc[i][j] / (C[o] + alpha);
-      } else {
-        v = alpha * acc[i][j];
-        if (C != nullptr) v = fmaf(beta, C[o], v);
-      }
+      float v = alpha * acc[i][j];
+      if (C != nullptr) v = fmaf(beta, C[o], v);
       O[o] = v;
       if constexpr (EPI == kAxpyNorm) sq = fmaf(v, v, sq);
     }

@@ -39,13 +39,14 @@ _SIGNATURES = {
                          _P, _F, _F, _P],
     # x, c, out, ws, batch, n, d, splits, ab, stream
     "repro_factor_update_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # x, c, out, ws, b, t, ch, taps, stride, lo, t_out, has_bias, splits,
-    # ab, stream
+    # x, c, out, ws, b, t, ch, taps, stride, lo, t_out, has_bias, tile,
+    # tiles, fold, chunk, splits, vec, ab, stream
     "repro_patch_factor_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _P, _P],
-    # a, b, s, out, batch, m, n, k, sa, sb, ss, so, lam_ab, lam, stream
-    "repro_matmul_rescale_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
-                                 _L, _P, _F, _P],
+                               _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # a, b, s, out, ws, batch, m, n, k, sa, sb, ss, so, lam_dev, lam, chunk,
+    # splits, vec, stream
+    "repro_matmul_rescale_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
+                                 _L, _L, _P, _F, _I, _I, _I, _P],
     # a_inv, t, mom, out, partials, m, n, k, am, stream
     "repro_axpy_momentum_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # q, k, v, lengths, out, b, hq, hkv, hd, s, sb, sh, ss, window, cap,

@@ -11,26 +11,31 @@ streams the padded input once per pair through VMEM with a halo block, and
 splices the homogeneous bias border on in jnp; it declines (returns None)
 unless ``C <= 128``, ``C % 8 == 0`` and ``t_out`` tiles, which whisper-small
 at full width never meets (t_out 3000, conv2's C 768).  The CUDA kernel
-(``csrc/patch_factor.cu``) cuts the (d, d) output into the masked 64×64
-tiles of ``csrc/gemm_tile.cuh`` and fills their K slices with an im2col
-loader straight from x: zero padding, stride, ragged edges and the constant
-1 of the bias feature are all masked reads, so the ``(B·t_out, K·C)`` patch
-matrix never exists and every shape runs.  Narrow factors (whisper's conv1,
-d = 241) split the rows over the grid as ``factor_update`` does.
+(``csrc/patch_factor.cu``) runs the pipelined fp32 main loop of
+``csrc/gemm_pipeline.cuh`` (128×128 or 64×64 tiles, a ``cp.async`` ring of
+K slices) with an im2col loader that fills both operand
+tiles straight from x: zero padding, stride, ragged edges and the constant
+1 of the bias feature are masked copies, so the ``(B·t_out, K·C)`` patch
+matrix never exists and every shape runs.  P̂ᵀP̂ is symmetric, so only the
+tiles (i, j) with i ≤ j are launched and each off-diagonal tile also writes
+its mirror (with C's own mirrored entries: C need not be symmetric).  The
+launch plan (``kernels/gemm_plan.py::triangle_plan``) picks the tile, splits
+the rows over the grid where the triangle cannot fill the card (whisper's
+conv1, d = 241), and folds the bias feature into the last tile column when
+the core features fill whole tiles (conv2, d = 2305 = 18·128 + 1); x is
+copied 16 bytes at a time when C % 4 == 0 and x is 16-byte aligned.
 
-Bound on this card: ``2·n·d²`` fp32 operations for ``n = B·t_out`` rows,
-the product the kernel computes, against x, the old factor and the new one
-moved once: compute-bound (conv2 of whisper-small, 127.5 GFLOP, 1.90 ms at
-67 TFLOP/s, against 116 MB, 0.035 ms at 3.35 TB/s).  P̂ᵀP̂ is symmetric:
-computing one triangle and mirroring it would halve that, later work as for
-``factor_update``.
+Bound on this card: one triangle of the symmetric product, ``N·d·(d+1)``
+fp32 operations for ``N = B·t_out`` rows, against x, the old factor and the
+new one moved once: compute-bound (both whisper-small stems, 65.2 GFLOP,
+0.973 ms at 67 TFLOP/s, against 124 MB, 0.037 ms at 3.35 TB/s).  The
+diagonal tiles compute both of their halves.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.factor_update import _sm_count, splits
+from repro_torch.kernels import _build, gemm_plan
 
 
 def patch_geometry(x_shape, taps: int, stride: int, padding: str):
@@ -39,6 +44,12 @@ def patch_geometry(x_shape, taps: int, stride: int, padding: str):
     t = x_shape[1]
     return (conv_pad_amounts(t, taps, stride, padding)[0],
             conv_out_len(t, taps, stride, padding))
+
+
+def vec16(x) -> bool:
+    """Whether the im2col loader may copy x 16 bytes at a time: C % 4 == 0
+    (a 4-channel chunk never straddles a tap) and x 16-byte aligned."""
+    return x.shape[-1] % 4 == 0 and gemm_plan.aligned16(x)
 
 
 def patch_factor_update_ref(x, c, *, taps: int, stride: int, padding: str,
@@ -79,13 +90,17 @@ def patch_factor_update(x, c, *, taps: int, stride: int, padding: str,
     x, c = x.contiguous(), c.contiguous()
     ab = _build.scalar_pair(alpha, beta, x.device)
     out = torch.empty_like(c)
-    s = splits(b * t_out, d, _sm_count(x.device.index or 0))
-    ws = (torch.empty(s, d, d, device=x.device, dtype=torch.float32)
-          if s > 1 else None)
+    core = taps * ch
+    plan = gemm_plan.triangle_plan(d, core, bool(has_bias), b * t_out,
+                                   gemm_plan.sm_count(x.device.index or 0))
+    ws = (torch.empty(plan.splits, d, d, device=x.device,
+                      dtype=torch.float32) if plan.splits > 1 else None)
     status = _build.load().lib.repro_patch_factor_f32(
         x.data_ptr(), c.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), b, t, ch, taps, stride, lo,
-        t_out, int(has_bias), s, ab.data_ptr(), _build.stream_of(x))
+        t_out, int(has_bias), plan.tile, plan.tiles, int(plan.fold),
+        plan.chunk, plan.splits, int(vec16(x)), ab.data_ptr(),
+        _build.stream_of(x))
     _build.check(status, "patch_factor")
     patch_factor_update.launches += 1
     return out

@@ -5,10 +5,15 @@ Kronecker eigenbasis:
 
 Replaces ``repro/kernels/rotate_rescale.py::matmul_rescale`` (``pallas_call``
 at line 66) and ``rotate_rescale`` (line 86).  ``matmul_rescale`` is its own
-CUDA kernel (``csrc/rotate_rescale.cu``): the shared tile of
-``csrc/gemm_tile.cuh`` with the division by ``S + λ`` as its epilogue, so the
-rotated gradient is divided while it is still in registers.  λ comes by
-value or, as a 0-d tensor, from the device (no host read).
+CUDA kernel (``csrc/rotate_rescale.cu``): the pipelined fp32 main loop of
+``csrc/gemm_pipeline.cuh`` (64×64 tiles, 4×4 register patches, a
+``cp.async`` ring of K slices) with the division by ``S + λ`` as its
+epilogue, so the rotated gradient is divided while it is still in
+registers.  The launch plan (``kernels/gemm_plan.py::dense_plan``) picks,
+where the output's tiles cannot fill the card, a split of K whose partial
+sums a second pass adds in a fixed order and divides; B's rows are copied
+16 bytes at a time when its width and address allow it.  λ comes by
+value or, as a 0-d tensor, by device pointer (no host read).
 ``rotate_rescale`` is four launches, in the TPU kernel's order:
 ``matmul(Q_Aᵀ, V)``, ``matmul_rescale(·, Q_G, S, λ)``, ``matmul(Q_A, ·)``,
 ``matmul(·, Q_Gᵀ)``.  The tile reads row-major operands only, so the two
@@ -17,19 +22,29 @@ products).
 
 Bound on this card: fp32 FMA throughput, ``2·a·g·(a + g)`` operations for
 each of the two rotations of an (a, g) weight — 18.0 GFLOP (0.269 ms at
-67 TFLOP/s) for the 8 layers of the full-width autoencoder.
+67 TFLOP/s) for the 8 layers of the full-width autoencoder, of which the
+8 ``matmul_rescale`` products are 4.49 GFLOP (0.067 ms).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, gemm_plan
 from repro_torch.kernels.matmul import matmul, operands
 
 
 def matmul_rescale_ref(a, b, s, lam=0.0):
     """Plain PyTorch version (the CPU path and the card's oracle)."""
     return (a.float() @ b.float()) / (s.float() + lam)
+
+
+def vec16(op) -> bool:
+    """Whether B's rows can be copied 16 bytes at a time: its width and
+    batch stride are multiples of 4 floats and it starts on a 16-byte
+    boundary.  A is always staged by 4-byte copies (each to its transposed
+    place), so its layout never matters."""
+    return (op.n % 4 == 0 and op.strides[1] % 4 == 0
+            and gemm_plan.aligned16(op.b))
 
 
 def matmul_rescale(a, b, s, lam=0.0):
@@ -40,15 +55,21 @@ def matmul_rescale(a, b, s, lam=0.0):
     if a.device.type == "cpu":
         return matmul_rescale_ref(a, b, s, lam)
     op = operands("matmul_rescale", a, b, s)
-    # a 0-d tensor lam is read on the device from a (lam, 0) buffer
-    lam_ab = (_build.scalar_pair(lam, 0.0, op.a.device)
-              if isinstance(lam, torch.Tensor) else None)
+    # a tensor lam is read on the device, by pointer (no host read)
+    lam_dev = (lam.to(device=op.a.device, dtype=torch.float32).reshape(())
+               if isinstance(lam, torch.Tensor) else None)
+    batch = max(op.batch, 1)
+    plan = gemm_plan.dense_plan(batch, op.m, op.n, op.k,
+                                gemm_plan.sm_count(op.a.device.index or 0))
+    ws = (torch.empty(plan.splits, batch * op.m * op.n, device=op.a.device,
+                      dtype=torch.float32) if plan.splits > 1 else None)
     status = _build.load().lib.repro_matmul_rescale_f32(
         op.a.data_ptr(), op.b.data_ptr(), op.epi[0].data_ptr(),
-        op.out.data_ptr(), max(op.batch, 1), op.m, op.n, op.k, *op.strides,
-        op.m * op.n if op.batch else 0,
-        None if lam_ab is None else lam_ab.data_ptr(),
-        0.0 if lam_ab is not None else float(lam), _build.stream_of(op.a))
+        op.out.data_ptr(), None if ws is None else ws.data_ptr(), batch,
+        op.m, op.n, op.k, *op.strides, op.m * op.n if op.batch else 0,
+        None if lam_dev is None else lam_dev.data_ptr(),
+        0.0 if lam_dev is not None else float(lam), plan.chunk, plan.splits,
+        int(vec16(op)), _build.stream_of(op.a))
     _build.check(status, "matmul_rescale")
     matmul_rescale.launches += 1
     return op.out

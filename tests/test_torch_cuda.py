@@ -195,6 +195,38 @@ def test_matmul_rescale_batched_on_card():
     _close(matmul_rescale(t, q, s, lam), matmul_rescale_ref(t, q, s, lam))
 
 
+# (batch, m, k, n, b offset in floats): the 8 layers' (a, g) @ (g, g), then
+# the copy-width and split edges of the pipelined main loop: K = N = 30 and
+# 250 (4-byte copies of B), a B one float off a 16-byte boundary, a
+# batch of 3 with a broadcast B
+MR_CASES = [(1, a, gd, gd, 0) for a, gd in LAYERS] + [
+    (1, 77, 30, 30, 0), (1, 300, 250, 250, 0), (1, 785, 1000, 1000, 1),
+    (3, 785, 1000, 1000, 0), (3, 131, 52, 52, 1)]
+
+
+@pytest.mark.parametrize("case", MR_CASES)
+def test_matmul_rescale_plans_on_card(case):
+    """matmul_rescale against its plain version on every plan the
+    autoencoder's shapes and the edges reach (K whole and split, 16- and
+    4-byte copies, a broadcast B), lam as a number and as a device
+    scalar."""
+    from repro_torch.kernels import gemm_plan
+    batch, m, k, n, off = case
+    g = _card()
+    lead = (batch,) if batch > 1 else ()
+    t = torch.randn(*lead, m, k, generator=g, device="cuda")
+    b = torch.randn(k * n + off, generator=g, device="cuda")[off:].view(k, n)
+    s = torch.rand(*lead, m, n, generator=g, device="cuda") + 0.05
+    plan = gemm_plan.dense_plan(batch, m, n, k, gemm_plan.sm_count(0))
+    if (batch, m, k, n) == (1, 251, 500, 500):
+        assert plan.splits > 1
+    for lam in (torch.tensor(1e-3, device="cuda"), 0.5):
+        before = matmul_rescale.launches
+        got = matmul_rescale(t, b, s, lam)
+        assert matmul_rescale.launches == before + 1
+        _close(got, matmul_rescale_ref(t, b, s, lam))
+
+
 @pytest.mark.parametrize("a,gd", LAYERS)
 def test_update_chain_on_card(a, gd):
     g = _card()
@@ -536,6 +568,31 @@ def test_patch_factor_on_card(case):
         prod = patch_factor_update_ref(x, old, alpha=a, beta=0.0, **kw)
         _close(got, patch_factor_update_ref(x, old, alpha=a, beta=eps, **kw),
                scale=max(prod.abs().max().item(), 1e-30))
+
+
+@pytest.mark.parametrize("case", PATCH_CASES + [
+    (2, 40, 16, 4, 1, "SAME", True),       # d = 65 = 64 + 1
+    (1, 50, 32, 4, 2, "SAME", True)])      # d = 129 = 128 + 1
+def test_patch_factor_nonsymmetric_c_on_card(case):
+    """One triangle plus a mirror: each mirrored entry takes its own entry
+    of a C that is not symmetric; d one more than a tile multiple folds the
+    bias feature into the last tile column."""
+    from repro_torch.kernels.patch_factor import (patch_factor_update,
+                                                  patch_factor_update_ref)
+    b, t, c, k, s, pad, bias = case
+    g = _card()
+    x = torch.randn(b, t, c, generator=g, device="cuda")
+    d = k * c + int(bias)
+    old = torch.randn(d, d, generator=g, device="cuda")
+    kw = dict(taps=k, stride=s, padding=pad, has_bias=bias)
+    # alpha = 1 - eps, so that a mirrored entry read from the wrong side of
+    # C (an error of order |C|) stands far above the tolerance
+    eps = torch.tensor(0.95, device="cuda")
+    a = 1 - eps
+    prod = patch_factor_update_ref(x, old, alpha=a, beta=0.0, **kw)
+    _close(patch_factor_update(x, old, alpha=a, beta=eps, **kw),
+           patch_factor_update_ref(x, old, alpha=a, beta=eps, **kw),
+           scale=max(prod.abs().max().item(), 1e-30))
 
 
 @pytest.mark.parametrize("s,n,d", [(12, 12000, 768), (12, 512, 3072),

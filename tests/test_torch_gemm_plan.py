@@ -1,0 +1,139 @@
+"""The host-side launch plans of the pipelined fp32 GEMM
+(``repro_torch/kernels/gemm_plan.py``) that ``matmul_rescale`` and
+``patch_factor`` hand to their CUDA kernels, checked on the CPU: the tiles
+cover the output (one triangle of tiles for the symmetric product), the K
+chunks are whole slices and sum every row once, the plan is the cost
+model's cheapest, and the 16-byte copies are chosen only where the strides
+and the address allow them.  Whether the kernels walk a plan's grid as
+planned is the card tests' to show (``tests/test_torch_cuda.py``).
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import gemm_plan
+from repro_torch.kernels.matmul import Operands
+from repro_torch.kernels.patch_factor import patch_geometry
+from repro_torch.kernels.patch_factor import vec16 as patch_vec16
+from repro_torch.kernels.rotate_rescale import vec16 as dense_vec16
+
+SMS = 132   # an H100's SMs
+
+# (batch, m, n, k): the autoencoder's 8 eigen-path products (a, g) @ (g, g),
+# the batched x3 check, and ragged ones
+DENSE = [(1, 785, 1000, 1000), (1, 1001, 500, 500), (1, 501, 250, 250),
+         (1, 251, 30, 30), (1, 31, 250, 250), (1, 251, 500, 500),
+         (1, 501, 1000, 1000), (1, 1001, 784, 784), (3, 785, 1000, 1000),
+         (3, 1001, 500, 500), (1, 7, 5, 3), (2, 129, 65, 17), (1, 5, 7, 0)]
+
+# (b, t, c, taps, stride, padding, bias): chip_smoke.py's cases (whisper's
+# two conv stems last) and ones whose d is one more than a tile multiple
+PATCH = [(2, 21, 13, 3, 1, "SAME", True), (1, 131, 8, 4, 1, "VALID", False),
+         (2, 31, 8, 3, 2, "SAME", True), (2, 8, 8, 9, 1, "SAME", True),
+         (2, 2, 8, 3, 1, "VALID", True), (3, 100, 136, 3, 2, "SAME", True),
+         (2, 40, 16, 4, 1, "SAME", True), (1, 50, 32, 4, 2, "SAME", True),
+         (8, 3000, 80, 3, 1, "SAME", True), (8, 3000, 768, 3, 2, "SAME", True)]
+
+
+def _chunks_cover(plan, k):
+    assert plan.chunk % gemm_plan.BK == 0 and plan.chunk >= gemm_plan.BK
+    assert plan.splits >= 1
+    # chunk z sums rows [z * chunk, min((z + 1) * chunk, k)): every row of
+    # [0, k) once, and no chunk launched empty
+    rows = [r for z in range(plan.splits)
+            for r in range(z * plan.chunk, min((z + 1) * plan.chunk, k))]
+    assert rows == list(range(k))
+    assert plan.splits == 1 or (plan.splits - 1) * plan.chunk < k
+
+
+@pytest.mark.parametrize("batch,m,n,k", DENSE)
+def test_dense_plan_covers_output_and_k(batch, m, n, k):
+    plan = gemm_plan.dense_plan(batch, m, n, k, SMS)
+    assert plan.tile == gemm_plan.DENSE_TILE and not plan.fold
+    rows, cols = -(-m // plan.tile), -(-n // plan.tile)
+    assert plan.tiles == rows * cols and plan.blocks == batch * plan.tiles
+    assert (rows - 1) * plan.tile < m <= rows * plan.tile
+    assert (cols - 1) * plan.tile < n <= cols * plan.tile
+    _chunks_cover(plan, k)
+
+
+@pytest.mark.parametrize("batch,m,n,k", DENSE)
+def test_dense_plan_takes_the_cheapest_modelled_split(batch, m, n, k):
+    """No split the planner weighs is cheaper by its model, and of equal
+    costs the smallest split is taken."""
+    plan = gemm_plan.dense_plan(batch, m, n, k, SMS)
+    cost = lambda chunk, used: gemm_plan.cost(
+        plan.tile, plan.blocks, chunk, used, SMS, batch * m * n)
+    best = cost(plan.chunk, plan.splits)
+    for s in range(1, gemm_plan.max_splits(k) + 1):
+        chunk, used = gemm_plan.chunks(k, s)
+        assert best <= cost(chunk, used)
+        if cost(chunk, used) == best:
+            assert plan.splits <= used
+
+
+def test_dense_plan_splits_where_tiles_cannot_fill_the_card():
+    """(251, 500) @ (500, 500) has 32 tiles for 132 SMs: the plan spreads it
+    over the card with a split of K; (1001, 784) @ (784, 784) has 208 and
+    takes K whole."""
+    narrow = gemm_plan.dense_plan(1, 251, 500, 500, SMS)
+    assert narrow.splits > 1 and narrow.blocks * narrow.splits <= 8 * SMS
+    assert gemm_plan.dense_plan(1, 1001, 784, 784, SMS).splits == 1
+
+
+@pytest.mark.parametrize("case", PATCH)
+def test_triangle_plan_covers_the_symmetric_output(case):
+    b, t, c, taps, stride, padding, bias = case
+    core = taps * c
+    d = core + int(bias)
+    t_out = patch_geometry((b, t, c), taps, stride, padding)[1]
+    plan = gemm_plan.triangle_plan(d, core, bias, b * t_out, SMS)
+    assert plan.tile in gemm_plan.TILES
+    assert (plan.tiles, plan.blocks, plan.fold) == gemm_plan.triangle_tiles(
+        d, core, bias, plan.tile)
+    assert plan.blocks == plan.tiles * (plan.tiles + 1) // 2
+    if plan.fold:   # the core fills whole tiles; the bias is the last entry
+        assert bias and plan.tiles * plan.tile == core and d == core + 1
+    else:
+        assert (plan.tiles - 1) * plan.tile < d <= plan.tiles * plan.tile
+    _chunks_cover(plan, b * t_out)
+
+
+def test_triangle_plan_at_whisper_small_stems():
+    """conv2 (d = 2305 = 18·128 + 1) folds its bias feature into the last
+    tile column (171 blocks, not 190); conv1 (d = 241, three triangle tiles
+    of 128) splits its 24,000 rows over the grid."""
+    conv2 = gemm_plan.triangle_plan(2305, 2304, True, 8 * 1500, SMS)
+    assert (conv2.tile, conv2.tiles, conv2.fold, conv2.blocks) == (
+        128, 18, True, 171)
+    conv1 = gemm_plan.triangle_plan(241, 240, True, 8 * 3000, SMS)
+    assert not conv1.fold and conv1.splits > 1
+    assert conv1.blocks * conv1.splits >= SMS // 2
+
+
+def _op(b, n, sb):
+    a = torch.zeros(2, 2)
+    return Operands(a, b, [a], 0, 2, n, 2, [0, sb, 0], a)
+
+
+@pytest.mark.parametrize("n,offset,sb,want", [
+    (1000, 0, 0, True), (784, 0, 784 * 784, True), (250, 0, 0, False),
+    (30, 0, 0, False), (1000, 1, 0, False), (1000, 4, 0, True),
+    (1000, 0, 6, False)])
+def test_dense_copy_width(n, offset, sb, want):
+    """16-byte copies of B only for a width and batch stride that are
+    multiples of 4 floats and a 16-byte aligned start."""
+    base = torch.zeros(8 + 4 * n)
+    assert base.data_ptr() % 16 == 0
+    b = base[offset:offset + 4 * n].view(4, n)
+    assert dense_vec16(_op(b, n, sb)) is want
+
+
+@pytest.mark.parametrize("c,offset,want", [
+    (768, 0, True), (80, 0, True), (13, 0, False), (136, 0, True),
+    (8, 2, False), (8, 4, True)])
+def test_patch_copy_width(c, offset, want):
+    """16-byte copies of x only for C % 4 == 0 and a 16-byte aligned x."""
+    base = torch.zeros(8 + 2 * 3 * c)
+    assert base.data_ptr() % 16 == 0
+    x = base[offset:offset + 2 * 3 * c].view(2, 3, c)
+    assert patch_vec16(x) is want
