@@ -31,7 +31,12 @@ on failure (nothing is caught):
             launches (``eager_ms``).  Also times ``torch.linalg.eigh`` of
             the 16 factors (the eigen refresh).  The decode kernels also
             at gemma2-2b's serving shapes (16 rows, Hq 8, Hkv 4, hd 256,
-            lengths 1-8192, window 4096, softcap 50).  flash_attention is
+            lengths 1-8192, window 4096, softcap 50), each timed case
+            with the n_split its wrapper launched (the split over the
+            keys, the wrapper's ``last_split``), one row,
+            one KV head at S 8192 (the most splits), with and without a
+            window and a softcap, and the host's cost of a paged
+            call with one split and with a split.  flash_attention is
             held to 1e-5 * max|plain| on small ragged cases (G = 1..4, hd
             16 / 64 / 256, causal or not, a window and a softcap, rows with
             no valid key), then at the prefill's shapes, each timed:
@@ -419,15 +424,24 @@ def decode_kernel_rows(dev, g) -> dict:
     strides, and page pools of 8 with a shuffled page table; and
     gemma2-2b's, 16 slots, Hq 8, Hkv 4, hd 256, lengths 1-8192, window
     4096, softcap 50, beside ``flex_softcap`` on bf16 q (SDPA has no
-    softcap)."""
-    from repro_torch.kernels.flash_decode import (flash_decode,
+    softcap).  Each timed case prints the n_split its wrapper launched
+    there (``last_split``).  Then one row and one KV head at S 8192 (hd
+    256, G 2): the most splits the rule gives.  Last, the host's cost of a
+    paged call at gemma2-2b's shapes with rows of one key, one split
+    against a split (the merge's launch; the workspace is the stream's
+    own, kept from call to call)."""
+    from repro_torch.kernels.flash_decode import (FILL, flash_decode,
                                                   flash_decode_paged,
                                                   flash_decode_paged_ref,
                                                   flash_decode_ref,
                                                   paged_gather)
+    from repro_torch.kernels.gemm_plan import sm_count
     errs = {"flash_decode": [], "flash_decode_paged": []}
+    wrappers = {"flash_decode": flash_decode,
+                "flash_decode_paged": flash_decode_paged}
+    sms = sm_count(torch.device(dev).index or 0)
 
-    def case(b, hq, hkv, hd, s_len, page):
+    def case(b, hq, hkv, hd, s_len, page, g=g):
         q = torch.randn(b, hq, hd, generator=g, device=dev)
         lengths = torch.randint(1, s_len + 1, (b,), generator=g, device=dev,
                                 dtype=torch.int32)
@@ -486,6 +500,13 @@ def decode_kernel_rows(dev, g) -> dict:
     bounds = {"flash_decode": decode_bound(lengths, s_len, hq, hkv, hd),
               "flash_decode_paged": decode_bound(lengths, s_len, hq, hkv, hd,
                                                  page)}
+    for name, r in timed.items():
+        r["n_split"] = wrappers[name].last_split
+        print(f"  {name} at {shape}: n_split {r['n_split']}, kernel "
+              f"{r['ms']:.4f} [{r['eager_ms']['ms']:.4f}] ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"[{r['eager_ms']['library_ms']:.4f}] ms, bound "
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]})")
     del q, lengths, k, v, kp, vp, table
 
     # gemma2-2b's serving shapes: hd 256, G 2, a window of 4096 and the
@@ -532,11 +553,57 @@ def decode_kernel_rows(dev, g) -> dict:
                       flex_paged),
             bound=decode_bound(lengths, gs, ghq, ghkv, ghd, page, gw))}
     for name, r in gemma.items():
-        print(f"  {name} at {gshape}: kernel {r['ms']:.4f} "
-              f"[{r['eager_ms']['ms']:.4f}] ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} "
-              f"ms ({r['bound'][1]})")
+        r["n_split"] = wrappers[name].last_split
+        print(f"  {name} at {gshape}: n_split {r['n_split']}, kernel "
+              f"{r['ms']:.4f} [{r['eager_ms']['ms']:.4f}] ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"[{r['eager_ms']['library_ms']:.4f}] ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
     del q, lengths, k, v, kp, vp, table, qb, dmask
+    # one row, one KV head, S 8192: the most splits the rule gives (its own
+    # generator, so that every other input stays that of earlier runs)
+    q, lengths, k, v, kp, vp, table = case(
+        1, 2, 1, 256, 8192, 8, torch.Generator(device=dev).manual_seed(1))
+    for window, cap in ((0, 0.0), (4096, 50.0)):
+        kw = dict(window=window, cap=cap)
+        got = flash_decode(q, k, v, lengths, **kw)
+        compare(f"flash_decode B=1 S=8192 n_split={flash_decode.last_split}"
+                f" window={window}", got,
+                flash_decode_ref(q, k, v, lengths, **kw),
+                errs["flash_decode"], tol=DECODE_TOL)
+        got = flash_decode_paged(q, kp, vp, lengths, table, **kw)
+        compare(f"flash_decode_paged B=1 S=8192 n_split="
+                f"{flash_decode_paged.last_split} window={window}", got,
+                flash_decode_paged_ref(q, kp, vp, lengths, table, **kw),
+                errs["flash_decode_paged"], tol=DECODE_TOL)
+    del q, lengths, k, v, kp, vp, table
+
+    # the host's cost of one paged call at gemma2-2b's shapes, rows of one
+    # key (next to no device work, so back-to-back calls run at the host's
+    # enqueue rate): enough rows for one split, against 16 rows, whose split
+    # adds the merge's launch
+    gi = torch.Generator(device=dev).manual_seed(2)
+    pool = torch.randn(2, page, ghkv, ghd, generator=gi,
+                       device=dev).to(torch.bfloat16)
+    host_us = {}
+    for rows in (-(-FILL * sms // ghkv), gb):
+        q = torch.randn(rows, ghq, ghd, generator=gi, device=dev)
+        ones = torch.ones(rows, dtype=torch.int32, device=dev)
+        table = torch.zeros(rows, gs // page, dtype=torch.int32, device=dev)
+        call = functools.partial(flash_decode_paged, q, pool, pool, ones,
+                                 table, window=gw, cap=50.0)
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        host_us[f"{rows} rows, n_split {flash_decode_paged.last_split}"] = us
+    del q, ones, table, pool
+    print(f"  flash_decode_paged host time per call, rows of one key: "
+          + ", ".join(f"{k} {v:.2f} us" for k, v in host_us.items()))
+
     return {
         "flash_decode": dict(
             source="src/repro_torch/csrc/flash_decode.cu",
@@ -562,7 +629,7 @@ def decode_kernel_rows(dev, g) -> dict:
                           "enable_gqa, length mask), bf16 q; gemma2-2b: "
                           "paged gather + compiled flex_attention(softcap "
                           "score_mod, block mask), bf16 q",
-            bound=bounds["flash_decode_paged"],
+            bound=bounds["flash_decode_paged"], host_us=host_us,
             cases={"gemma2-2b": gemma["flash_decode_paged"]})}
 
 
@@ -1825,6 +1892,7 @@ def main() -> None:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "library_calls": r.get("library_calls"),
             "eager_ms": r["eager_ms"], "unit": r["unit"],
+            "n_split": r.get("n_split"), "host_us": r.get("host_us"),
             "cases": r.get("cases")})
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"main": main_out, "eigh_16_factors_eager_ms": eigh_ms,

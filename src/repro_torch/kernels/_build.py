@@ -49,14 +49,14 @@ _SIGNATURES = {
                                  _L, _L, _P, _F, _I, _I, _I, _P],
     # a_inv, t, mom, out, partials, m, n, k, am, stream
     "repro_axpy_momentum_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # q, k, v, lengths, out, b, hq, hkv, hd, s, sb, sh, ss, window, cap,
-    # scale, stream
-    "repro_flash_decode_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
-                                _L, _L, _I, _F, _F, _P],
-    # q, k_pool, v_pool, lengths, page_table, out, b, hq, hkv, hd, page,
-    # blocks, window, cap, scale, stream
-    "repro_flash_decode_paged_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _I, _I, _F, _F, _P],
+    # q, k, v, lengths, out, ws, b, hq, hkv, hd, s, sb, sh, ss, window, cap,
+    # scale, n_split, stream
+    "repro_flash_decode_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _I, _F, _F, _I, _P],
+    # q, k_pool, v_pool, lengths, page_table, out, ws, b, hq, hkv, hd, page,
+    # blocks, window, cap, scale, n_split, stream
+    "repro_flash_decode_paged_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _I, _I, _F, _F, _I, _P],
     # q, k, v, out, b, hq, hkv, tq, tk, hd, q/kv/out strides (b, h, t),
     # causal, window, cap, scale, stream
     "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

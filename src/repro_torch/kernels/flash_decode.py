@@ -22,18 +22,33 @@ mean of V over all S positions (dense) or over all ``max_blocks·page``
 positions of the row's page-table row (paged).  The serving engine never
 makes such a row: its lengths are ``pos + 1 ≥ 1``.
 
-The CUDA kernels (``csrc/flash_decode.cu``) give one block to each (row,
-KV head), holding all G query heads of the group, so each K/V row is read
-from device memory once per group (the amortization the TPU kernel's
-q-head block ``bh`` buys).  Eight warps split the keys; within a warp,
-``hd/8`` lanes share a key, each holding 8 of its dimensions, so a warp
-takes ``256/hd`` keys at a time; each lane group keeps an online softmax
-(m, l, acc) per query head in float32, merged across the warp with
-shuffles and across warps in shared memory.  The TPU kernels walk every
-block of the cache and mask; these visit only the valid keys, which gives
-the same function.  The scores are multiplied by 1/√hd where the plain
-versions divide (the same float for the powers of two hd takes here); the
-softcap is ``cap·tanhf(s/cap)`` in IEEE float32.
+The CUDA kernels (``csrc/flash_decode.cu``) are one kernel body for both
+routes, flash decoding: the keys of each (row, KV head) are split into
+``n_split`` chunks, a block each, grid (n_split, Hkv, B).  A block holds
+all G query heads of the group, so each K/V row is read from device
+memory once per group (the amortization the TPU kernel's q-head block
+``bh`` buys).  :func:`decode_splits` picks ``n_split`` on the host from
+B·Hkv against the SM count, the cache's S and the window, never from the
+lengths (they stay on the device: reading them would synchronize every
+decode step); each block finds its chunk of the row's span on the device
+from ``lengths[b]``, chunks of ``max(⌈n/n_split⌉, MIN_CHUNK)`` keys, so a
+short row leaves its last chunks empty.  Each wrapper keeps the n_split
+of its latest launch as ``last_split``.  With one split the block writes
+the output; otherwise each block writes a partial (m, l, acc) per query
+head to a float32 workspace (one a stream, from ``torch.empty``, kept
+for the later calls on that stream), and a second launch merges the
+partials of each (row, query head) in split order (an empty chunk's
+(−1e30, 0) weighs nothing), so two calls give the same bits.  In a
+block, four warps take turns over the chunk; within a warp ``hd/8``
+lanes share a key, each holding 8 of its dimensions, and each lane group
+loads up to 8 keys (4 at G = 3, 4) before scoring them; one max and one
+rescale of (l, acc) per tile of keys, lane groups merged with shuffles,
+warps in shared memory.  The paged route reads each page's
+table entry once per tile of keys, not once per key.  The TPU kernels
+walk every block of the cache and mask; these visit only the valid keys,
+which gives the same function.  The scores are multiplied by 1/√hd where
+the plain versions divide (the same float for the powers of two hd takes
+here); the softcap is ``cap·tanhf(s/cap)`` in IEEE float32.
 
 Bound on this card: bytes — each call must read the valid keys' K and V
 rows once (``2·Σ_b n_b·Hkv·hd·2`` bytes for n_b valid keys of row b) at
@@ -50,9 +65,58 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.gemm_plan import sm_count
 
 NEG_INF = -1e30
 MAX_GROUP = 4   # query heads per KV head: csrc/flash_decode.cu builds G = 1..4
+# The split aims the grid at FILL blocks an SM, about two waves of the
+# three or four blocks of 128 threads an SM holds (119-168 registers a
+# thread): ragged rows free their slots early.  MIN_CHUNK is the kernel's
+# shortest chunk (kMinChunk in csrc/flash_decode.cu), which the rule plans
+# with: a chunk of that many keys outweighs a block's fixed cost.
+FILL = 8
+MIN_CHUNK = 256
+
+
+def key_span(s_len: int, window: int) -> int:
+    """The most keys a row with a valid key can have: S, or the window."""
+    return min(s_len, window) if window > 0 else s_len
+
+
+def decode_splits(pairs: int, span: int, sms: int) -> int:
+    """Chunks the keys of each of the ``pairs`` = B·Hkv (row, KV head)
+    blocks are split into: one where the pairs alone give each SM ``FILL``
+    blocks, else enough for that, but no more than ``span`` (the longest
+    row's keys) fills with ``MIN_CHUNK``-key chunks."""
+    if pairs < 1 or pairs >= FILL * sms:
+        return 1
+    return max(1, min(-(-FILL * sms // pairs), span // MIN_CHUNK))
+
+
+# The partials' workspace of each (device, stream), from torch.empty on
+# that stream: the calls on one stream run in order, so each call may
+# overwrite what the one before it merged, and a decode step pays for no
+# allocation.  It grows by doubling; the buffers it outgrows stay
+# allocated, so a CUDA graph that captured one never replays into memory
+# that was handed on.
+_WORKSPACES: dict = {}
+
+
+def _split(q, hkv, s_len, window, stream):
+    """This call's n_split and the address of its float32 workspace on the
+    call's stream: (m, l) and acc of each split and (row, query head); no
+    workspace for one split."""
+    b, hq, hd = q.shape
+    dev = q.get_device()
+    n_split = decode_splits(b * hkv, key_span(s_len, window), sm_count(dev))
+    if n_split == 1:
+        return 1, None
+    need = n_split * b * hq * (hd + 2)
+    bufs = _WORKSPACES.setdefault((dev, stream), [])
+    if not bufs or bufs[-1].numel() < need:
+        size = max(need, 2 * bufs[-1].numel()) if bufs else need
+        bufs.append(torch.empty(size, dtype=torch.float32, device=q.device))
+    return n_split, bufs[-1].data_ptr()
 
 
 def _lengths(lengths, b, device):
@@ -155,13 +219,16 @@ def flash_decode(q, k, v, lengths, *, window=0, cap=0.0):
                          f"multiples of 8 elements (16-byte rows)")
     q = q.contiguous()
     out = torch.empty_like(q)
+    stream = _build.stream_of(q)
+    n_split, ws = _split(q, k.shape[1], k.shape[2], window, stream)
     status = _build.load().lib.repro_flash_decode_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, hq, k.shape[1], hd, k.shape[2], k.stride(0),
+        out.data_ptr(), ws, b, hq, k.shape[1], hd, k.shape[2], k.stride(0),
         k.stride(1), k.stride(2), int(window), float(cap),
-        float(1.0 / math.sqrt(hd)), _build.stream_of(q))
+        float(1.0 / math.sqrt(hd)), n_split, stream)
     _build.check(status, "flash_decode")
     flash_decode.launches += 1
+    flash_decode.last_split = n_split
     return out
 
 
@@ -197,17 +264,24 @@ def flash_decode_paged(q, k_pool, v_pool, lengths, page_table, *, window=0,
                          f"{tuple(v_pool.shape)} must be contiguous "
                          f"(num_pages, page, Hkv, {hd})")
     q, page_table = q.contiguous(), page_table.contiguous()
-    num_pages, page, hkv, _ = k_pool.shape
+    _, page, hkv, _ = k_pool.shape
+    blocks = page_table.shape[1]
     out = torch.empty_like(q)
+    stream = _build.stream_of(q)
+    n_split, ws = _split(q, hkv, blocks * page, window, stream)
     status = _build.load().lib.repro_flash_decode_paged_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        lengths.data_ptr(), page_table.data_ptr(), out.data_ptr(), b, hq,
-        hkv, hd, page, page_table.shape[1], int(window), float(cap),
-        float(1.0 / math.sqrt(hd)), _build.stream_of(q))
+        lengths.data_ptr(), page_table.data_ptr(), out.data_ptr(), ws, b, hq,
+        hkv, hd, page, blocks, int(window), float(cap),
+        float(1.0 / math.sqrt(hd)), n_split, stream)
     _build.check(status, "flash_decode_paged")
     flash_decode_paged.launches += 1
+    flash_decode_paged.last_split = n_split
     return out
 
 
 flash_decode.launches = 0
 flash_decode_paged.launches = 0
+# the n_split of each wrapper's latest launch (0 before its first)
+flash_decode.last_split = 0
+flash_decode_paged.last_split = 0

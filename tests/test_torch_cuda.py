@@ -29,6 +29,7 @@ from repro_torch.data.pipeline import SyntheticAutoencoderData
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels.factor_update import factor_update, factor_update_ref
+from repro_torch.kernels.gemm_plan import sm_count
 from repro_torch.kernels.matmul import matmul, matmul_ref
 from repro_torch.kernels.ns_step import (ns_inverse, ns_inverse_ref, ns_step,
                                          ns_step_ref)
@@ -398,6 +399,130 @@ def test_decode_kernels_every_group_size_on_card(group):
         _close(FD.flash_decode_paged(q, pool_k, pool_v, lengths, table, **kw),
                FD.flash_decode_paged_ref(q, pool_k, pool_v, lengths, table,
                                          **kw), tol=DECODE_TOL)
+
+
+def _shuffled_pages(g, k, v, page):
+    """Pools of ``page``-key pages holding the (B, S, Hkv, hd) caches k and
+    v, in shuffled physical pages (page 0 is the allocator's null page),
+    and the (B, S / page) table that maps them back."""
+    b, s_len, hkv, hd = k.shape
+    nb = s_len // page
+    perm = torch.randperm(b * nb, generator=g, device="cuda") + 1
+    pools = []
+    for x in (k, v):
+        pool = torch.zeros(1 + b * nb, page, hkv, hd, dtype=x.dtype,
+                           device="cuda")
+        pool[perm] = x.reshape(b * nb, page, hkv, hd)
+        pools.append(pool)
+    return pools[0], pools[1], perm.reshape(b, nb).to(torch.int32)
+
+
+def _route_calls(g, route, q, k, v):
+    """The kernel and its plain version on one route, as functions of
+    (lengths, window, cap), and the kernel's wrapper (its ``last_split``
+    is the n_split the kernel was launched with)."""
+    if route == "dense":
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        return (lambda n, **kw: FD.flash_decode(q, kt, vt, n, **kw),
+                lambda n, **kw: FD.flash_decode_ref(q, kt, vt, n, **kw),
+                FD.flash_decode)
+    pk, pv, table = _shuffled_pages(g, k, v, int(route[len("paged"):]))
+    return (lambda n, **kw: FD.flash_decode_paged(q, pk, pv, n, table, **kw),
+            lambda n, **kw: FD.flash_decode_paged_ref(q, pk, pv, n, table,
+                                                      **kw),
+            FD.flash_decode_paged)
+
+
+# (B, Hq, Hkv, hd, S, window, cap, lengths): shapes that reach each regime
+# of decode_splits.  most-splits: one row, one KV head, S 8192; ragged:
+# 8151 keys, which the chunks do not divide; empty: rows of 3 and 1 keys
+# against S / MIN_CHUNK splits; window: the window and softcap at hd 256
+SPLIT_CASES = {
+    "most-splits": (1, 2, 1, 256, 8192, 0, 0.0, [8192]),
+    "ragged": (2, 2, 1, 256, 8192, 0, 50.0, [8192, 8151]),
+    "empty": (3, 4, 1, 64, 8192, 0, 0.0, [8192, 3, 1]),
+    "window": (2, 8, 4, 256, 8192, 4096, 50.0, [8192, 5000]),
+}
+
+
+@pytest.mark.parametrize("route", ["dense", "paged8", "paged16"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_decode_split_regimes_on_card(case, route):
+    """Both kernels at shapes the split rule gives many splits, each within
+    DECODE_TOL of the plain version, the rows with no valid key as well,
+    and the same bits from two calls."""
+    b, hq, hkv, hd, s_len, window, cap, lens = SPLIT_CASES[case]
+    g = _card()
+    q, k, v, _ = _decode_case(g, b, hq, hkv, hd, s_len)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kernel, plain, wrapper = _route_calls(g, route, q, k, v)
+    kw = dict(window=window, cap=cap)
+    got = kernel(lengths, **kw)
+    # the span's most chunks: S / MIN_CHUNK, or the window's
+    span = min(s_len, window) if window else s_len
+    assert wrapper.last_split == span // FD.MIN_CHUNK > 1, wrapper.last_split
+    if case == "empty":
+        assert wrapper.last_split > 3
+    _close(got, plain(lengths, **kw), tol=DECODE_TOL)
+    assert torch.equal(got, kernel(lengths, **kw))
+    bad = torch.zeros_like(lengths)
+    _close(kernel(bad, **kw), plain(bad, **kw), tol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("route", ["dense", "paged8", "paged16"])
+def test_decode_one_split_where_the_rows_fill_the_card(route):
+    """B·Hkv of at least FILL blocks an SM: one split, no merge."""
+    g = _card()
+    hq, hkv, hd, s_len = 32, 8, 64, 256
+    b = -(-FD.FILL * sm_count(0) // hkv)
+    q, k, v, lengths = _decode_case(g, b, hq, hkv, hd, s_len)
+    kernel, plain, wrapper = _route_calls(g, route, q, k, v)
+    got = kernel(lengths)
+    assert wrapper.last_split == 1
+    _close(got, plain(lengths), tol=DECODE_TOL)
+    assert torch.equal(got, kernel(lengths))
+
+
+@pytest.mark.parametrize("group", range(1, 1 + FD.MAX_GROUP))
+def test_decode_split_every_group_size_on_card(group):
+    """G = 1..4 at a shape that splits (hd 64 and 256, a window and a
+    softcap), on both routes, pages of 8 and 16."""
+    g = _card()
+    b, hkv, s_len, window = 2, 2, 2048, 700
+    for hd in (64, 256):
+        q, k, v, lengths = _decode_case(g, b, group * hkv, hkv, hd, s_len)
+        for route in ("dense", "paged8", "paged16"):
+            kernel, plain, wrapper = _route_calls(g, route, q, k, v)
+            for window_, cap in ((0, 0.0), (window, 30.0)):
+                kw = dict(window=window_, cap=cap)
+                got = kernel(lengths, **kw)
+                assert wrapper.last_split > 1
+                _close(got, plain(lengths, **kw), tol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("route", ["dense", "paged8"])
+def test_decode_split_on_two_streams_at_once_on_card(route):
+    """Calls that split, three in a row on each of two streams with no sync
+    between the streams, each within DECODE_TOL of the plain version: a
+    stream's calls share its workspace in order, the streams do not."""
+    g = _card()
+    b, hq, hkv, hd, s_len = 2, 8, 4, 256, 8192
+    calls = []
+    for _ in range(2):
+        q, k, v, lengths = _decode_case(g, b, hq, hkv, hd, s_len)
+        calls.append((_route_calls(g, route, q, k, v), lengths))
+    kw = dict(window=4096, cap=50.0)
+    torch.cuda.synchronize()
+    outs = []
+    for (kernel, _, _), lengths in calls:
+        with torch.cuda.stream(torch.cuda.Stream()):
+            outs.append([kernel(lengths, **kw) for _ in range(3)])
+    torch.cuda.synchronize()
+    assert calls[0][0][2].last_split > 1
+    for ((_, plain, _), lengths), got in zip(calls, outs):
+        want = plain(lengths, **kw)
+        for x in got:
+            _close(x, want, tol=DECODE_TOL)
 
 
 def test_decode_wrappers_raise_on_bad_operands():
