@@ -46,7 +46,12 @@ on failure (nothing is caught):
             ``torch.compile`` with a softcap ``score_mod`` and a block mask
             of the causal, window and length masks.  factor_update also
             batched, as the LM's stacked layers send it ((12, 12000, 768),
-            (12, 512, 3072), (12, 12000, 3072)).  patch_factor is held to
+            (12, 512, 3072), (12, 12000, 3072)), and timed there beside
+            ``baddbmm``; with a C that is not symmetric (alpha = 1 - eps),
+            unbatched and batched; at each tile and a forced split of
+            (777, 251); with 4-byte copies of an x off a 16-byte boundary;
+            its registers and spills are printed from the build log and a
+            spill fails the phase.  patch_factor is held to
             1e-4 * max|alpha * P̂ᵀP̂| at beta = 0 and 0.95 on ragged cases
             (C 13 and 136, t_out 21, taps over t, t < taps, odd-length
             stride 2, VALID without bias) and at whisper-small's conv
@@ -116,8 +121,9 @@ on failure (nothing is caught):
 7. profile  each autoencoder path twice more: per-stage host times
             (synchronized), then device time by kernel under
             ``torch.profiler``; whisper's steps 3 and 4 of another run
-            under ``torch.profiler``.  The profiles come last, so that no
-            profiled window precedes a timed path.
+            under ``torch.profiler``, with factor_update's device ms.  The
+            profiles come last, so that no profiled window precedes a
+            timed path.
 8. summary  the ``{"main": ...}``, ``{"serve": ...}`` and ``{"kernels":
             [...]}`` lines, the nvidia-smi line, and last ``{"ok": true,
             "device": {...}}``.
@@ -132,10 +138,12 @@ row i sees) against q, k, v and the output moved once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -268,19 +276,25 @@ def compare(name, got, want, errs, scale=None, tol=TOL):
     errs.append(err)
 
 
+def _device_us(event) -> float:
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def _device_events(prof) -> list:
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
 def device_kernels(prof) -> tuple:
     """Device busy ms of a ``torch.profiler`` run, and its ten busiest
     kernels as (device ms, launches, name)."""
-    from torch.autograd import DeviceType
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=dev, reverse=True)
-    top = [(dev(e) / 1e3, e.count, e.key[:120]) for e in kernels[:10]]
+    kernels = sorted(_device_events(prof), key=_device_us, reverse=True)
+    top = [(_device_us(e) / 1e3, e.count, e.key[:120]) for e in kernels[:10]]
     for ms, n, key in top:
         print(f"  {ms:9.3f} ms {n:6d}x  {key[:90]}")
-    return sum(dev(e) for e in kernels) / 1e3, top
+    return sum(_device_us(e) for e in kernels) / 1e3, top
 
 
 def profile_path(label, mlp, params, data, cfg, steps) -> dict:
@@ -846,6 +860,157 @@ def patch_kernel_row(dev, g) -> dict:
         full_product_bound_ms=bound_ms(full, 0.0)[0])
 
 
+# (n, d): the autoencoder's factor sides at the full batch, and ragged ones
+FU_CASES = [(N_ROWS, d) for d in (785, 1001, 1000, 784, 501, 251, 31, 30)
+            ] + [(1000, 30)]
+# (S, N, d): whisper-small's stacked layers, one launch each: the
+# encoder's widths at N = 8 x 1500 and the decoder's d_ff at N = 512
+FU_WHISPER = [(12, 12000, 768), (12, 512, 3072), (12, 12000, 3072)]
+
+
+def ptxas_resources(log: str, kernel: str) -> list:
+    """(template arguments, registers, spill store bytes, spill load bytes)
+    of each instantiation of ``kernel`` in an ``nvcc -Xptxas -v`` log, the
+    arguments as ptxas mangles them (``ILi128ELb1ELb0E``: 128, true,
+    false)."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                args = re.search(kernel + r"(I.*?E)E", name)
+                out.append([args.group(1) if args else name, None, None,
+                            None])
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill", line)
+            out[-1][2:] = [int(st), int(ld)]
+        elif name and "registers" in line:
+            out[-1][1] = int(re.search(r"Used (\d+) registers",
+                                       line).group(1))
+    return [tuple(r) for r in out]
+
+
+@contextlib.contextmanager
+def forced(name: str, plan_of):
+    """Make ``gemm_plan.<name>`` return ``plan_of(*args)`` inside."""
+    from repro_torch.kernels import gemm_plan
+    keep = getattr(gemm_plan, name)
+    setattr(gemm_plan, name, plan_of)
+    try:
+        yield
+    finally:
+        setattr(gemm_plan, name, keep)
+
+
+def factor_update_row(dev, randn, spd, sides, log) -> dict:
+    """factor_update against its plain version, held to TOL * max|alpha *
+    XᵀX| (beta * C would otherwise dwarf an error in the product): the
+    autoencoder's sides and ragged ones at beta = 0 (the first step) and
+    0.95; whisper-small's three stacked shapes; a C that is not symmetric
+    (alpha = 1 - eps, so that a mirrored entry read from the wrong side of
+    C stands far above the tolerance), unbatched and batched; each tile and
+    a forced split at a ragged shape; 4-byte copies of an x with d % 4 == 0
+    off a 16-byte boundary.  Then timed at the autoencoder's 16 sides beside
+    addmm and at whisper's three stacked shapes beside baddbmm.  Fails if
+    a kernel instantiation spills."""
+    from repro_torch.kernels import gemm_plan
+    from repro_torch.kernels.factor_update import (factor_update,
+                                                   factor_update_ref, vec16)
+    resources = ptxas_resources(log, "factor_update_kernel")
+    for args, regs, st, ld in resources:
+        print(f"  factor_update_kernel<{args}>: {regs} registers, spill "
+              f"stores {st} B, loads {ld} B")
+    if any(st or ld for _, _, st, ld in resources):
+        raise AssertionError(f"factor_update spills: {resources}")
+    errs = []
+
+    def check(label, x, c, a, b):
+        prod = factor_update_ref(x, c, alpha=a, beta=0.0)
+        compare(f"factor_update {label}", factor_update(x, c, alpha=a, beta=b),
+                factor_update_ref(x, c, alpha=a, beta=b), errs,
+                scale=prod.abs().max().item())
+
+    # alpha/beta as device scalars, as the main path passes them
+    for n, d in FU_CASES:
+        x, c = torch.tanh(randn(n, d)), spd(d, 512)
+        for e in (0.0, 0.95):
+            eps = torch.tensor(e, device=dev)
+            check(f"X({n},{d}) beta={e}", x, c, (1 - eps) / n, eps)
+    xs = [torch.tanh(randn(N_ROWS, d)) for d in sides]
+    cs = [spd(d, 512) for d in sides]
+    eps = torch.tensor(0.95, device=dev)
+    fu = lambda f: [f(x, c, alpha=(1 - eps) / N_ROWS, beta=eps)
+                    for x, c in zip(xs, cs)]
+    # XᵀX is symmetric, so the function needs only its d(d+1)/2 distinct
+    # entries, 2N operations each; the kernel computes one triangle of tiles
+    # (the diagonal tiles whole).
+    row = dict(
+        source="src/repro_torch/csrc/factor_update.cu",
+        replaces="src/repro/kernels/factor_update.py:41",
+        unit=f"all 16 factor sides of one step, X ({N_ROWS}, d)",
+        library_calls="addmm; whisper-small: baddbmm",
+        registers=resources,
+        **timings(lambda: fu(factor_update), lambda: fu(factor_update_ref),
+                  lambda: [torch.addmm(c, x.T, x, beta=0.95,
+                                       alpha=0.05 / N_ROWS)
+                           for x, c in zip(xs, cs)]),
+        bound=bound_ms(float(N_ROWS) * sum(d * (d + 1) for d in sides),
+                       4.0 * sum(N_ROWS * d + 2 * d * d for d in sides)))
+    del xs, cs
+
+    ops, flops, nbytes = [], 0.0, 0.0
+    for s_, n, d in FU_WHISPER:
+        x = torch.tanh(randn(s_, n, d))
+        c = torch.stack([spd(d, 512)] * s_)
+        check(f"batched X({s_},{n},{d})", x, c, (1 - eps) / n, eps)
+        ops.append((x, c))
+        flops += float(s_) * n * d * (d + 1)
+        nbytes += 4.0 * s_ * (n * d + 2 * d * d)
+    run = lambda f: [f(x, c, alpha=(1 - eps) / x.shape[1], beta=eps)
+                     for x, c in ops]
+    # the library call takes Python scalars: a tensor alpha or beta would
+    # make baddbmm read it on the host
+    row["cases"] = {"whisper-small": dict(
+        unit="whisper-small's stacked factor sides of one stats step: X "
+             + ", ".join(f"({s_}, {n}, {d})" for s_, n, d in FU_WHISPER),
+        **timings(lambda: run(factor_update), lambda: run(factor_update_ref),
+                  lambda: [torch.baddbmm(c, x.transpose(1, 2), x, beta=0.95,
+                                         alpha=0.05 / x.shape[1])
+                           for x, c in ops]),
+        bound=bound_ms(flops, nbytes))}
+    del ops, x, c
+
+    # one triangle plus a mirror, each tile, a forced split, both copy
+    # widths; a second generator leaves randn's draws as they were
+    ge = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda *s: torch.randn(*s, generator=ge, device=dev)
+    a = 1 - eps
+    for shape in [(N_ROWS, 1001), (N_ROWS, 1000), (1000, 30), (777, 251),
+                  (3, 100, 33), (2, 512, 768)]:
+        x, d = torch.tanh(rnd(*shape)), shape[-1]
+        c = rnd(*shape[:-2], d, d)
+        check(f"C not symmetric X{shape} vec {int(vec16(x))}", x, c, a, eps)
+    n, d = 777, 251
+    x, c = torch.tanh(rnd(n, d)), rnd(d, d)
+    for tile in gemm_plan.TILES:
+        for splits in (1, 4):
+            chunk, used = gemm_plan.chunks(n, splits)
+            plan = gemm_plan.Plan(tile, -(-d // tile), 0, chunk, used)
+            with forced("triangle_plan", lambda *_, plan=plan: plan):
+                check(f"X({n},{d}) C not symmetric, forced tile {tile} "
+                      f"splits {used}", x, c, a, eps)
+    base = torch.tanh(rnd(N_ROWS * 1000 + 1))
+    x = base[1:].view(N_ROWS, 1000)   # 4 bytes off a 16-byte boundary
+    assert not vec16(x)
+    check(f"X({N_ROWS},1000) off a 16-byte boundary, vec 0", x,
+          spd(1000, 512), (1 - eps) / N_ROWS, eps)
+    del base, x, c
+    row["max_abs_err"] = max(errs)
+    return row
+
+
+
 def agree_whisper(steps: int = 4) -> list:
     """Reduced whisper-small, ``steps`` K-FAC steps of the launcher's setup
     on the card and on the CPU (plain versions), same weights and uniforms:
@@ -996,10 +1161,17 @@ def profile_whisper() -> dict:
     print(f"[profile:whisper] steps 3 and 4 (plain, lambda) in "
           f"{window['ms']:.1f} ms; busiest kernels:")
     busy_ms, top = device_kernels(prof)
+    fu = [e for e in _device_events(prof)
+          if "factor_update_kernel" in e.key]
+    fu_ms = sum(_device_us(e) for e in fu) / 1e3
+    fu_n = sum(e.count for e in fu)
     print(f"  device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / window['ms']:.1f}%)")
+          f"({100 * busy_ms / window['ms']:.1f}%); factor_update_kernel "
+          f"{fu_ms:.1f} ms in {fu_n} launches (split partials' sums, shared "
+          f"with patch_factor, not included)")
     torch.cuda.empty_cache()
-    return {"wall_ms": window["ms"], "device_busy_ms": busy_ms, "top": top}
+    return {"wall_ms": window["ms"], "device_busy_ms": busy_ms, "top": top,
+            "factor_update_ms": fu_ms, "factor_update_launches": fu_n}
 
 
 def to_device(params, dev):
@@ -1373,8 +1545,6 @@ def main() -> None:
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticAutoencoderData
     from repro_torch.kernels import _build
-    from repro_torch.kernels.factor_update import (factor_update,
-                                                   factor_update_ref)
     from repro_torch.kernels.gemm_plan import dense_plan as mr_plan
     from repro_torch.kernels.gemm_plan import sm_count
     from repro_torch.kernels.matmul import matmul, matmul_ref, operands
@@ -1418,56 +1588,8 @@ def main() -> None:
     print(f"[kernels] tolerance max|err| <= {TOL:g} * scale: max|ref|, or "
           f"max|alpha * XᵀX| for factor_update")
 
-    # factor_update: X (8192, d), alpha/beta as device scalars; beta = 0 is
-    # the main path's first step.  The tolerance scales with the product
-    # alpha * XᵀX alone, which beta * C would otherwise dwarf.
-    errs = []
-    for n, d in [(N_ROWS, d) for d in (785, 1001, 1000, 784, 501, 251, 31,
-                                       30)] + [(1000, 30)]:
-        x, c = torch.tanh(randn(n, d)), spd(d, 512)
-        for e in (0.0, 0.95):
-            eps = torch.tensor(e, device=dev)
-            a, b = (1 - eps) / n, eps
-            prod = factor_update_ref(x, c, alpha=a, beta=0.0)
-            compare(f"factor_update X({n},{d}) beta={e}",
-                    factor_update(x, c, alpha=a, beta=b),
-                    factor_update_ref(x, c, alpha=a, beta=b), errs,
-                    scale=prod.abs().max().item())
-    xs = [torch.tanh(randn(N_ROWS, d)) for d in sides]
-    cs = [spd(d, 512) for d in sides]
-    eps = torch.tensor(0.95, device=dev)
-    fu = lambda f: [f(x, c, alpha=(1 - eps) / N_ROWS, beta=eps)
-                    for x, c in zip(xs, cs)]
-    # XᵀX is symmetric, so the function needs only its d(d+1)/2 distinct
-    # entries, 2N operations each; the kernel computes all d².
-    rows["factor_update"] = dict(
-        source="src/repro_torch/csrc/factor_update.cu",
-        replaces="src/repro/kernels/factor_update.py:41",
-        unit=f"all 16 factor sides of one step, X ({N_ROWS}, d)",
-        max_abs_err=max(errs),
-        **timings(lambda: fu(factor_update), lambda: fu(factor_update_ref),
-                  lambda: [torch.addmm(c, x.T, x, beta=0.95,
-                                       alpha=0.05 / N_ROWS)
-                           for x, c in zip(xs, cs)]),
-        bound=bound_ms(float(N_ROWS) * sum(d * (d + 1) for d in sides),
-                       4.0 * sum(N_ROWS * d + 2 * d * d for d in sides)),
-        full_product_bound_ms=bound_ms(
-            2.0 * N_ROWS * sum(d * d for d in sides), 0.0)[0])
-    del xs, cs
-    # the LM's stacked layers: (S, N, d) records, one launch with grid z
-    # over S (whisper-small's encoder widths at N = 8 x 1500 and the
-    # decoder's d_ff at N = 512)
-    for s_, n, d in [(12, 12000, 768), (12, 512, 3072), (12, 12000, 3072)]:
-        x = torch.tanh(randn(s_, n, d))
-        c = torch.stack([spd(d, 512)] * s_)
-        a, b = (1 - eps) / n, eps
-        prod = factor_update_ref(x, c, alpha=a, beta=0.0)
-        compare(f"factor_update batched X({s_},{n},{d})",
-                factor_update(x, c, alpha=a, beta=b),
-                factor_update_ref(x, c, alpha=a, beta=b), errs,
-                scale=prod.abs().max().item())
-        del x, c, prod
-    rows["factor_update"]["max_abs_err"] = max(errs)
+    rows["factor_update"] = factor_update_row(dev, randn, spd, sides,
+                                              lib.log)
 
     # patch_factor: ragged cases and whisper-small's two conv stems
     rows["patch_factor"] = patch_kernel_row(dev, g)
@@ -1712,13 +1834,16 @@ def main() -> None:
               f"[{e['plain_ms']:.4f}] ms, library {fmt_ms(r['library_ms'])} "
               f"[{fmt_ms(e['library_ms'])}] ms, bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]})")
-    print(f"  factor_update bound of the full (d, d) product, as the kernel "
-          f"computes it: {rows['factor_update']['full_product_bound_ms']:.4f}"
-          f" ms")
+    wu = rows["factor_update"]["cases"]["whisper-small"]
+    print(f"  factor_update {wu['unit']}: kernel {wu['ms']:.4f} "
+          f"[{wu['eager_ms']['ms']:.4f}] ms, plain {wu['plain_ms']:.4f} ms, "
+          f"library {wu['library_ms']:.4f} ms (baddbmm), bound "
+          f"{wu['bound'][0]:.4f} ms ({wu['bound'][1]})")
     print(f"  patch_factor bound of the full (d, d) product: "
           f"{rows['patch_factor']['full_product_bound_ms']:.4f} ms")
-    for name in ("matmul_rescale", "patch_factor"):
-        r = rows[name]
+    for name, r in [(name, rows[name]) for name in (
+            "matmul_rescale", "patch_factor", "factor_update")] + [
+            ("factor_update whisper-small", wu)]:
         print(f"  {name}: {r['bound'][0] / r['ms']:.1%} of its bound, "
               f"{r['bound'][0] * FP32_FLOPS / 1e12 / r['ms']:.2f} TFLOP/s "
               f"(the bound's operations over the device time)")

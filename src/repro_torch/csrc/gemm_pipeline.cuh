@@ -1,5 +1,6 @@
 // Pipelined fp32 GEMM main loop for Hopper's CUDA cores, shared by
-// matmul_rescale (rotate_rescale.cu) and patch_factor (patch_factor.cu):
+// matmul_rescale (rotate_rescale.cu), patch_factor (patch_factor.cu) and
+// factor_update (factor_update.cu):
 //
 //   acc[m][n] = sum_k A_tile[k][m] * B_tile[k][n]
 //
@@ -24,7 +25,8 @@
 //   k-major, and staged(A), called once per slice when that slice has
 //   landed (a loader that also reduces the staged A tile does it there).
 //   DenseLoader below reads row-major operands; patch_factor.cu's im2col
-//   loader reads patches of a conv input.  A masked element is a cp.async
+//   loader reads patches of a conv input; factor_update.cu's loader reads
+//   both tiles of X^T X from X as it lies.  A masked element is a cp.async
 //   with source size 0 (zero fill) from a clamped, valid address.
 // - The epilogue is a compile-time enum (store_tile): an epilogue passed
 //   as a functor cost the older tile 15% at 91 registers.  `mirror` also

@@ -1,9 +1,11 @@
-// Shared-memory tiled fp32 GEMM with a choice of epilogues, the body of every
-// hand-written kernel of this package:
+// Shared-memory tiled fp32 GEMM with a choice of epilogues, the body of two
+// hand-written kernels of this package:
 //
 //   matmul.cu          O[b] = alpha * A[b] @ B[b] + beta * C[b]    (kAxpby)
-//   factor_update.cu   O    = alpha * X^T X      + beta * C        (kAxpby)
 //   update_chain.cu    O    = alpha * A @ B + beta * C, + sum O^2  (kAxpyNorm)
+//
+// (factor_update.cu, patch_factor.cu and rotate_rescale.cu run the
+// pipelined main loop of gemm_pipeline.cuh instead.)
 //
 // Design (simple and correct first): a 64 x 64 output tile per block of 256
 // threads, each thread owning a 4 x 4 register patch; K is a loop inside the
@@ -14,20 +16,15 @@
 // wgmma/TMA pipelines are later work.
 //
 // The epilogue is a template parameter that only the final loop over the
-// register patch reads, so the kAxpby instantiations of matmul and
-// factor_update carry no code of the other epilogues (one unused pointer
-// aside) and keep their register counts, 70 and 80.  An epilogue passed as
-// a functor instead gave the plain matmul 91 registers and cost it 15%.
+// register patch reads, so the kAxpby instantiation of matmul carries no
+// code of the other epilogue (one unused pointer aside) and keeps its
+// register count, 70.  An epilogue passed as a functor instead gave the plain
+// matmul 91 registers and cost it 15%.
 //
 // alpha/beta come either by value or, when `ab` is non-null, from a
 // 2-float device buffer read inside the kernel, so values that live on the
-// device (the decay eps of the factor statistics, the damping lam, the
-// fixed-lr chain's alpha and mu) need no host sync.
-//
-// In the X^T X form, blockIdx.z splits K (the rows of X) into chunks of K
-// rows, the last one cut at k_total, so that a narrow factor (one 64 x 64
-// tile at d = 30) still spreads over the card; factor_update.cu then sums
-// the per-chunk partials in a second, elementwise pass.
+// device (the damping lam, the fixed-lr chain's alpha and mu) need no host
+// sync.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,18 +46,14 @@ enum Epilogue : int {
               // no atomics, so the sum is the same on every run
 };
 
-// XTX == false: A is (M, K) row-major; element (m, k) = A[m * K + k].
-// XTX == true : A is X of shape (K, M) row-major and the kernel reads its
-//               transpose; element (m, k) = X[k * M + m].
-// B is (K, N) row-major in both cases.  Batch b = blockIdx.z offsets every
-// operand by its batch stride (0 broadcasts one operand over the batch);
-// with XTX the batch is the K split and block z sums rows
-// [z * K, min((z + 1) * K, k_total)).
-template <bool XTX, int EPI>
+// A is (M, K) row-major; element (m, k) = A[m * K + k].  B is (K, N)
+// row-major.  Batch b = blockIdx.z offsets every operand by its batch
+// stride (0 broadcasts one operand over the batch).
+template <int EPI>
 __global__ void __launch_bounds__(kThreads)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                 const float* __restrict__ C, float* __restrict__ O,
-                int M, int N, int K, int k_total,
+                int M, int N, int K,
                 long long sA, long long sB, long long sC, long long sO,
                 const float* __restrict__ ab, float alpha, float beta,
                 float* __restrict__ partials) {
@@ -76,8 +69,6 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
     alpha = ab[0];
     beta = ab[1];
   }
-
-  if (XTX) K = min(K, k_total - static_cast<int>(bz) * K);
 
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / kTN);
@@ -95,13 +86,12 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
     for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
       const int idx = tid + r * kThreads;
-      // neighbouring threads read neighbouring addresses in both layouts
-      const int m = XTX ? idx % kBM : idx / kBK;
-      const int k = XTX ? idx / kBM : idx % kBK;
+      // neighbouring threads read neighbouring addresses
+      const int m = idx / kBK;
+      const int k = idx % kBK;
       const int gm = row0 + m, gk = k0 + k;
       float v = 0.f;
-      if (gm < M && gk < K)
-        v = XTX ? A[(long long)gk * M + gm] : A[(long long)gm * K + gk];
+      if (gm < M && gk < K) v = A[(long long)gm * K + gk];
       As[k][m] = v;
     }
 #pragma unroll
@@ -159,19 +149,17 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
 }
 
 // Launch on `stream`; returns cudaGetLastError() as an int (0 = success).
-template <bool XTX, int EPI>
+template <int EPI>
 inline int launch_gemm_f32(const float* A, const float* B, const float* C,
                            float* O, int batch, int M, int N, int K,
-                           int k_total, long long sA, long long sB,
-                           long long sC, long long sO, const float* ab,
-                           float alpha, float beta, float* partials,
-                           void* stream) {
+                           long long sA, long long sB, long long sC,
+                           long long sO, const float* ab, float alpha,
+                           float beta, float* partials, void* stream) {
   if (batch <= 0 || M <= 0 || N <= 0) return 0;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
-  gemm_f32_kernel<XTX, EPI>
+  gemm_f32_kernel<EPI>
       <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          A, B, C, O, M, N, K, k_total, sA, sB, sC, sO, ab, alpha, beta,
-          partials);
+          A, B, C, O, M, N, K, sA, sB, sC, sO, ab, alpha, beta, partials);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,9 +13,9 @@ extern "C" int repro_matmul_f32(const float* a, const float* b,
                                 int n, int k, long long sa, long long sb,
                                 long long sc, long long so, const float* ab,
                                 float alpha, float beta, void* stream) {
-  return repro_torch::launch_gemm_f32<false, repro_torch::kAxpby>(
-      a, b, c, out, batch, m, n, k, k, sa, sb, sc, so, ab, alpha, beta,
-      nullptr, stream);
+  return repro_torch::launch_gemm_f32<repro_torch::kAxpby>(
+      a, b, c, out, batch, m, n, k, sa, sb, sc, so, ab, alpha, beta, nullptr,
+      stream);
 }
 
 extern "C" const char* repro_cuda_error_string(int status) {

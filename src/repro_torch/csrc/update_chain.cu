@@ -18,7 +18,7 @@ extern "C" int repro_axpy_momentum_f32(const float* a_inv, const float* t,
                                        const float* mom, float* out,
                                        float* partials, int m, int n, int k,
                                        const float* am, void* stream) {
-  return repro_torch::launch_gemm_f32<false, repro_torch::kAxpyNorm>(
-      a_inv, t, mom, out, 1, m, n, k, k, 0, 0, 0, 0, am, 0.f, 0.f, partials,
+  return repro_torch::launch_gemm_f32<repro_torch::kAxpyNorm>(
+      a_inv, t, mom, out, 1, m, n, k, 0, 0, 0, 0, am, 0.f, 0.f, partials,
       stream);
 }

@@ -37,8 +37,10 @@ _SIGNATURES = {
     # a, b, c, out, batch, m, n, k, sa, sb, sc, so, ab, alpha, beta, stream
     "repro_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
                          _P, _F, _F, _P],
-    # x, c, out, ws, batch, n, d, splits, ab, stream
-    "repro_factor_update_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # x, c, out, ws, batch, n, d, tile, tiles, chunk, splits, vec, ab,
+    # stream
+    "repro_factor_update_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _P, _P],
     # x, c, out, ws, b, t, ch, taps, stride, lo, t_out, has_bias, tile,
     # tiles, fold, chunk, splits, vec, ab, stream
     "repro_patch_factor_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

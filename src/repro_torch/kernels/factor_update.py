@@ -5,44 +5,39 @@
 Replaces the Pallas TPU kernel ``repro/kernels/factor_update.py::
 factor_update`` (``pallas_call`` at line 56), which streamed X twice through
 VMEM and took alpha/beta by scalar prefetch.  The CUDA kernel
-(``csrc/factor_update.cu``) reads X as both operands and folds the
-transpose into its tile load, so Xᵀ is never materialized, and it reads
-alpha/beta from a 2-float device buffer: the decay ε = min(1 − 1/k, cap) is
-computed on the device each step and is never read on the host.
+(``csrc/factor_update.cu``) runs the pipelined fp32 main loop of
+``csrc/gemm_pipeline.cuh`` (128×128 or 64×64 tiles, a ``cp.async`` ring of
+K slices) with a loader that stages both operand tiles of XᵀX as they lie
+in X (both are k-major), so Xᵀ is never materialized; it copies 16 bytes at
+a time when d % 4 == 0 and X is 16-byte aligned (:func:`vec16`), else 4.
+XᵀX is symmetric, so only the tiles (i, j) with i ≤ j are launched and each
+off-diagonal tile also writes its mirror (with C's own mirrored entries: C
+need not be symmetric).  alpha/beta come from a 2-float device buffer: the
+decay ε = min(1 − 1/k, cap) is computed on the device each step and is
+never read on the host.
 
-Bound on this card: XᵀX is symmetric, so the function needs only its
-d(d+1)/2 distinct entries, ``N·d·(d+1)`` fp32 operations, against
-``4·(N·d + 2·d²)`` bytes — compute-bound at the path's widths (8.2 GFLOP
-and 0.123 ms at N = 8192, d = 1001, against 67 TFLOP/s).  A (d, d) output
-has few 64×64 tiles (one at d = 30) against a long N, so narrow factors
-split N over the grid (:func:`splits`) and sum the partials in a second
-pass.  The LM's stacked layers pass (S, N, d) with (S, d, d) factors: one
-launch, grid z over S (no split: S times the tiles fill the card).  The
-kernel computes the whole (d, d) product, twice the work the bound counts;
-computing one triangle and mirroring it is later work.
+Bound on this card: one triangle of the symmetric product, ``N·d·(d+1)``
+fp32 operations, against ``4·(N·d + 2·d²)`` bytes — compute-bound at the
+path's widths (8.2 GFLOP and 0.123 ms at N = 8192, d = 1001, against 67
+TFLOP/s).  The diagonal tiles compute both of their halves.  The launch plan
+(``kernels/gemm_plan.py::triangle_plan``) picks the tile and, where the
+triangle cannot fill the card (narrow factors against a long N), splits N
+over the grid and sums the partials in a second pass.  The LM's stacked
+layers pass (S, N, d) with (S, d, d) factors: one launch, grid z over S (no
+split: S times the triangle fills the card).
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from repro_torch.kernels import _build
-
-_TILE = 64              # output tile edge of csrc/gemm_tile.cuh
-_MIN_ROWS = 64          # fewest rows of X one split sums
+from repro_torch.kernels import _build, gemm_plan
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def splits(n: int, d: int, sms: int) -> int:
-    """How many chunks the N rows of X are cut into: enough output tiles
-    times chunks to fill two blocks per SM, each chunk at least 64 rows."""
-    tiles = (-(-d // _TILE)) ** 2
-    return max(1, min((2 * sms) // tiles, n // _MIN_ROWS))
+def vec16(x) -> bool:
+    """Whether the loader may copy x 16 bytes at a time: d % 4 == 0 (every
+    row, and every batch slice, starts on a 16-byte boundary) and x 16-byte
+    aligned."""
+    return x.shape[-1] % 4 == 0 and gemm_plan.aligned16(x)
 
 
 def factor_update_ref(x, c, *, alpha, beta):
@@ -58,7 +53,8 @@ def factor_update(x, c, *, alpha, beta):
 
     ``alpha``/``beta`` may be Python numbers or 0-d tensors; on the card
     they are packed into one device buffer the kernel reads by pointer.
-    CPU tensors take :func:`factor_update_ref`.
+    CPU tensors take :func:`factor_update_ref`; CUDA tensors launch the
+    kernel or raise.
     """
     if x.device.type == "cpu":
         return factor_update_ref(x, c, alpha=alpha, beta=beta)
@@ -71,12 +67,15 @@ def factor_update(x, c, *, alpha, beta):
     x, c = x.contiguous(), c.contiguous()
     ab = _build.scalar_pair(alpha, beta, x.device)
     out = torch.empty_like(c)
-    s = splits(n, d, _sm_count(x.device.index or 0)) if batch == 1 else 1
-    ws = (torch.empty(s, d, d, device=x.device, dtype=torch.float32)
-          if s > 1 else None)
+    plan = gemm_plan.triangle_plan(d, d, False, n,
+                                   gemm_plan.sm_count(x.device.index or 0),
+                                   batch)
+    ws = (torch.empty(plan.splits, d, d, device=x.device,
+                      dtype=torch.float32) if plan.splits > 1 else None)
     status = _build.load().lib.repro_factor_update_f32(
         x.data_ptr(), c.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), batch, n, d, s, ab.data_ptr(),
+        None if ws is None else ws.data_ptr(), batch, n, d, plan.tile,
+        plan.tiles, plan.chunk, plan.splits, int(vec16(x)), ab.data_ptr(),
         _build.stream_of(x))
     _build.check(status, "factor_update")
     factor_update.launches += 1

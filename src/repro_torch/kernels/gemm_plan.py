@@ -1,12 +1,14 @@
 """Launch plans for the pipelined fp32 GEMM of ``csrc/gemm_pipeline.cuh``.
 
 A plan fixes, per call, the output tile and the split of the summed
-dimension K over blocks (rows of P̂ for ``patch_factor``); the wrappers add
-the copy width of the loader, which depends on the operands' addresses.
+dimension K over blocks (rows of P̂ for ``patch_factor``, of X for
+``factor_update``); the wrappers add the copy width of the loader, which
+depends on the operands' addresses.
 The kernels take the plan as it is; the choices live here, in Python, where
 the CPU tests reach them.  Dense products (``matmul_rescale``) take the
 64×64 tile: no shape of the main path fills the card with 128-tiles.
-Symmetric products (``patch_factor``) weigh the 128 and the 64 tile.
+Symmetric products (``patch_factor``, ``factor_update``) weigh the 128 and
+the 64 tile.
 
 The choice follows a small cost model: the busiest SM runs
 ``ceil(blocks / SMs)`` blocks, each of ``2·T²·chunk`` operations, at the
@@ -75,12 +77,14 @@ def cost(tile: int, blocks: int, chunk: int, used: int, sms: int,
     return t
 
 
-def _best(options, k: int, sms: int, out_floats: int) -> Plan:
+def _best(options, k: int, sms: int, out_floats: int,
+          most: int | None = None) -> Plan:
     """The cheapest (tile, split) over ``options`` = [(tile, tiles, blocks,
-    fold)]; ties go to the earlier tile and the smaller split."""
+    fold)], at most ``most`` splits (default :func:`max_splits`); ties go
+    to the earlier tile and the smaller split."""
     best = None
     for tile, tiles, blocks, fold in options:
-        for s in range(1, max_splits(k) + 1):
+        for s in range(1, (most or max_splits(k)) + 1):
             chunk, used = chunks(k, s)
             t = cost(tile, blocks, chunk, used, sms, out_floats)
             if best is None or t < best[0]:
@@ -119,11 +123,18 @@ def triangle_options(d: int, core: int, has_bias: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def triangle_plan(d: int, core: int, has_bias: bool, rows: int,
-                  sms: int) -> Plan:
+def triangle_plan(d: int, core: int, has_bias: bool, rows: int, sms: int,
+                  batch: int = 1) -> Plan:
     """``α·P̂ᵀP̂ + β·C`` for P̂ of ``rows`` rows and d = core + has_bias
-    features: tiles (i, j), i <= j, grid z over splits of the rows."""
-    return _best(triangle_options(d, core, has_bias), rows, sms, d * d)
+    features: tiles (i, j), i <= j, grid z over splits of the rows.  A
+    batch of ``batch`` such products (``factor_update``'s stacked layers)
+    launches batch × the triangle's blocks, grid z over the batch, and
+    takes no split."""
+    options = [(tile, tiles, batch * blocks, fold)
+               for tile, tiles, blocks, fold in triangle_options(
+                   d, core, has_bias)]
+    return _best(options, rows, sms, batch * d * d,
+                 most=1 if batch > 1 else None)
 
 
 @functools.lru_cache(maxsize=None)

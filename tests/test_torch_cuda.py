@@ -81,10 +81,13 @@ def _spd(g, d, n=512):
                                  (777, 251)])
 def test_factor_update_on_card(n, d):
     """At beta = 0 (the first step) and beta = 0.95, held to the scale of
-    alpha * XᵀX alone, which beta * C would otherwise dwarf."""
+    alpha * XᵀX alone, which beta * C would otherwise dwarf; with a C that
+    is bitwise symmetric the output is too (one triangle plus its mirror),
+    and a second call gives the same bits."""
     g = _card()
     x = torch.tanh(torch.randn(n, d, generator=g, device="cuda"))
     c = _spd(g, d)
+    c = 0.5 * (c + c.T)   # bitwise symmetric
     for e in (0.0, 0.95):
         eps = torch.tensor(e, device="cuda")
         a = (1 - eps) / n
@@ -94,6 +97,71 @@ def test_factor_update_on_card(n, d):
         prod = factor_update_ref(x, c, alpha=a, beta=0.0)
         _close(got, factor_update_ref(x, c, alpha=a, beta=eps),
                scale=prod.abs().max().item())
+        assert torch.equal(got, got.T)
+        assert torch.equal(got, factor_update(x, c, alpha=a, beta=eps))
+
+
+def _factor_close(x, c, a, b):
+    prod = factor_update_ref(x, c, alpha=a, beta=0.0)
+    got = factor_update(x, c, alpha=a, beta=b)
+    _close(got, factor_update_ref(x, c, alpha=a, beta=b),
+           scale=prod.abs().max().item())
+    return got
+
+
+@pytest.mark.parametrize("shape", [(8192, 1001), (8192, 1000), (1000, 30),
+                                   (777, 251), (3, 100, 33), (2, 512, 768)])
+def test_factor_update_nonsymmetric_c_on_card(shape):
+    """One triangle plus a mirror: each mirrored entry takes its own entry
+    of a C that is not symmetric (alpha = 1 - eps, so that an entry read
+    from the wrong side of C stands far above the tolerance)."""
+    g = _card()
+    x = torch.tanh(torch.randn(*shape, generator=g, device="cuda"))
+    d = shape[-1]
+    c = torch.randn(*shape[:-2], d, d, generator=g, device="cuda")
+    eps = torch.tensor(0.95, device="cuda")
+    _factor_close(x, c, 1 - eps, eps)
+
+
+@pytest.mark.parametrize("tile", [128, 64])
+@pytest.mark.parametrize("splits", [1, 4])
+def test_factor_update_forced_plans_on_card(tile, splits, monkeypatch):
+    """Each tile, the rows whole and split (a short last chunk), at a
+    ragged shape with a C that is not symmetric; a symmetric C gives a
+    bitwise symmetric output, and a second call the same bits."""
+    from repro_torch.kernels import gemm_plan
+    g = _card()
+    n, d = 777, 251
+    chunk, used = gemm_plan.chunks(n, splits)
+    assert used == splits and n % chunk != 0
+    plan = gemm_plan.Plan(tile, -(-d // tile), 0, chunk, used)
+    monkeypatch.setattr(gemm_plan, "triangle_plan", lambda *_: plan)
+    x = torch.tanh(torch.randn(n, d, generator=g, device="cuda"))
+    eps = torch.tensor(0.95, device="cuda")
+    _factor_close(x, torch.randn(d, d, generator=g, device="cuda"), 1 - eps,
+                  eps)
+    c = _spd(g, d)
+    c = 0.5 * (c + c.T)
+    got = _factor_close(x, c, (1 - eps) / n, eps)
+    assert torch.equal(got, got.T)
+    assert torch.equal(got, factor_update(x, c, alpha=(1 - eps) / n,
+                                          beta=eps))
+
+
+@pytest.mark.parametrize("n,d,offset,vec", [
+    (1000, 1000, 0, True), (1000, 1000, 1, False), (1000, 1001, 0, False),
+    (300, 768, 0, True), (300, 768, 2, False), (300, 30, 0, False)])
+def test_factor_update_copy_widths_on_card(n, d, offset, vec):
+    """The 16-byte loader (d % 4 == 0, x 16-byte aligned) and the 4-byte
+    one (d % 4 != 0, or x off a 16-byte boundary)."""
+    from repro_torch.kernels.factor_update import vec16
+    g = _card()
+    base = torch.tanh(torch.randn(n * d + 4, generator=g, device="cuda"))
+    x = base[offset:offset + n * d].view(n, d)
+    assert vec16(x) is vec
+    eps = torch.tensor(0.95, device="cuda")
+    _factor_close(x, torch.randn(d, d, generator=g, device="cuda"), 1 - eps,
+                  eps)
 
 
 @pytest.mark.parametrize("a,gd", LAYERS)
@@ -723,10 +791,13 @@ def test_patch_factor_nonsymmetric_c_on_card(case):
 @pytest.mark.parametrize("s,n,d", [(12, 12000, 768), (12, 512, 3072),
                                    (2, 64, 48), (3, 100, 33)])
 def test_factor_update_batched_on_card(s, n, d):
-    """The stacked layers' (S, N, d) records in one launch."""
+    """The stacked layers' (S, N, d) records in one launch; symmetric
+    slices of C give bitwise symmetric slices, and a second call the same
+    bits."""
     g = _card()
     x = torch.tanh(torch.randn(s, n, d, generator=g, device="cuda"))
     c = torch.stack([_spd(g, d) for _ in range(s)])
+    c = 0.5 * (c + c.mT)   # bitwise symmetric
     eps = torch.tensor(0.75, device="cuda")
     a = (1 - eps) / n
     before = factor_update.launches
@@ -735,6 +806,8 @@ def test_factor_update_batched_on_card(s, n, d):
     prod = factor_update_ref(x, c, alpha=a, beta=0.0)
     _close(got, factor_update_ref(x, c, alpha=a, beta=eps),
            scale=prod.abs().max().item())
+    assert torch.equal(got, got.mT)
+    assert torch.equal(got, factor_update(x, c, alpha=a, beta=eps))
 
 
 def test_reduced_whisper_training_cuda_vs_cpu():

@@ -1,6 +1,7 @@
 """The host-side launch plans of the pipelined fp32 GEMM
-(``repro_torch/kernels/gemm_plan.py``) that ``matmul_rescale`` and
-``patch_factor`` hand to their CUDA kernels, checked on the CPU: the tiles
+(``repro_torch/kernels/gemm_plan.py``) that ``matmul_rescale``,
+``patch_factor`` and ``factor_update`` hand to their CUDA kernels, checked
+on the CPU: the tiles
 cover the output (one triangle of tiles for the symmetric product), the K
 chunks are whole slices and sum every row once, the plan is the cost
 model's cheapest, and the 16-byte copies are chosen only where the strides
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import gemm_plan
+from repro_torch.kernels.factor_update import vec16 as factor_vec16
 from repro_torch.kernels.matmul import Operands
 from repro_torch.kernels.patch_factor import patch_geometry
 from repro_torch.kernels.patch_factor import vec16 as patch_vec16
@@ -32,6 +34,16 @@ PATCH = [(2, 21, 13, 3, 1, "SAME", True), (1, 131, 8, 4, 1, "VALID", False),
          (2, 2, 8, 3, 1, "VALID", True), (3, 100, 136, 3, 2, "SAME", True),
          (2, 40, 16, 4, 1, "SAME", True), (1, 50, 32, 4, 2, "SAME", True),
          (8, 3000, 80, 3, 1, "SAME", True), (8, 3000, 768, 3, 2, "SAME", True)]
+
+# (batch, n, d) of factor_update: the autoencoder's factor sides at the full
+# batch (N = 8192), ragged ones, whisper-small's three stacked shapes (one
+# launch, grid z over the 12 layers) and small batched ones
+AE_SIDES = [785, 1000, 1001, 500, 501, 250, 251, 30, 31, 250, 251, 500, 501,
+            1000, 1001, 784]
+WHISPER_FU = [(12, 12000, 768), (12, 512, 3072), (12, 12000, 3072)]
+FACTOR = ([(1, 8192, d) for d in sorted(set(AE_SIDES))]
+          + [(1, 1000, 30), (1, 777, 251)] + WHISPER_FU
+          + [(2, 64, 48), (3, 100, 33)])
 
 
 def _chunks_cover(plan, k):
@@ -137,3 +149,49 @@ def test_patch_copy_width(c, offset, want):
     assert base.data_ptr() % 16 == 0
     x = base[offset:offset + 2 * 3 * c].view(2, 3, c)
     assert patch_vec16(x) is want
+
+
+@pytest.mark.parametrize("batch,n,d", FACTOR)
+def test_factor_update_plan_covers_the_triangle(batch, n, d):
+    """XᵀX of every slice: one triangle of tiles over (d, d), each slice's
+    blocks launched once per K chunk, the chunks summing every row of X
+    once, and a batch never split (grid z runs over the slices)."""
+    plan = gemm_plan.triangle_plan(d, d, False, n, SMS, batch)
+    assert plan.tile in gemm_plan.TILES and not plan.fold
+    assert (plan.tiles - 1) * plan.tile < d <= plan.tiles * plan.tile
+    assert plan.blocks == batch * plan.tiles * (plan.tiles + 1) // 2
+    _chunks_cover(plan, n)
+    if batch > 1:
+        assert plan.splits == 1
+    if (batch, n, d) in WHISPER_FU:
+        assert plan.tile == 128
+
+
+@pytest.mark.parametrize("batch,n,d", FACTOR)
+def test_factor_update_plan_takes_the_cheapest_modelled_plan(batch, n, d):
+    """No tile and split the planner weighs (a batch: no split) is cheaper
+    by its model."""
+    plan = gemm_plan.triangle_plan(d, d, False, n, SMS, batch)
+    best = gemm_plan.cost(plan.tile, plan.blocks, plan.chunk, plan.splits,
+                          SMS, batch * d * d)
+    for tile, tiles, blocks, _ in gemm_plan.triangle_options(d, d, False):
+        for s in range(1, (1 if batch > 1 else gemm_plan.max_splits(n)) + 1):
+            chunk, used = gemm_plan.chunks(n, s)
+            assert best <= gemm_plan.cost(tile, batch * blocks, chunk, used,
+                                          SMS, batch * d * d)
+
+
+@pytest.mark.parametrize("shape,offset,want", [
+    ((4, 1000), 0, True), ((4, 768), 0, True), ((2, 4, 768), 0, True),
+    ((4, 1001), 0, False), ((4, 785), 0, False), ((4, 30), 0, False),
+    ((4, 1000), 1, False), ((4, 1000), 2, False), ((4, 1000), 4, True),
+    ((2, 4, 33), 0, False)])
+def test_factor_update_copy_width(shape, offset, want):
+    """16-byte copies of X only for d % 4 == 0 (each row and each batch
+    slice then starts on a 16-byte boundary) and a 16-byte aligned X."""
+    n = 1
+    for s in shape:
+        n *= s
+    base = torch.zeros(8 + n)
+    assert base.data_ptr() % 16 == 0
+    assert factor_vec16(base[offset:offset + n].view(shape)) is want

@@ -178,13 +178,3 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
                             "flash_decode": 0, "flash_decode_paged": 0,
                             "flash_attention": 0, "patch_factor": 0}
 
-
-def test_factor_update_split_policy():
-    """The N split of narrow factors (kernels/factor_update.splits) at the
-    full-width sides on a 132-SM card: wide sides stay whole, narrow ones
-    fill the card with chunks of at least 64 rows."""
-    got = {d: FU.splits(8192, d, 132) for d in (1001, 785, 501, 251, 31)}
-    assert got == {1001: 1, 785: 1, 501: 4, 251: 16, 31: 128}
-    for n, d in [(1000, 30), (64, 30), (10, 3), (8192, 2000)]:
-        s = FU.splits(n, d, 132)
-        assert s >= 1 and (s == 1 or n // s >= 64)

@@ -6,21 +6,24 @@ cost model, on one NVIDIA card:
     python3 tools/plan_sweep.py
 
 from the repository root.  At the autoencoder's 8 eigen-path products
-(``matmul_rescale``: the 64 tile, K whole or split) and at whisper-small's
+(``matmul_rescale``: the 64 tile, K whole or split), at whisper-small's
 two conv stems (``patch_factor``: the 128 and the 64 tile, the rows whole or
-split), each plan the planner weighs is forced on the wrapper in turn and
+split), at the autoencoder's factor sides (``factor_update``, X of 8192
+rows: each tile, the rows whole or split) and at whisper-small's three
+stacked factor shapes (``factor_update`` batched: each tile, no split), each
+plan the planner weighs is forced on the wrapper in turn and
 timed as ``chip_smoke.py`` times kernels: device time (a CUDA graph of the
 call replayed between CUDA events) and, in brackets, eager (CUDA events
 around back-to-back calls, where the host's cost of a split shows: its
 workspace and its second launch).  In parentheses the model's time; ``*``
 marks the plan the planner takes.  Last, the 8 products as the eigen path
-calls them, under the planner's plans and with K whole.  The model's
+calls them and the 16 factor sides as a step calls them, under the
+planner's plans and with K whole.  The model's
 weights (``gemm_plan._SM_FLOPS``, ``_FILL``, ``_SPLIT_S``) are fitted to
 these tables.
 """
 from __future__ import annotations
 
-import contextlib
 import sys
 from pathlib import Path
 
@@ -35,22 +38,11 @@ SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
 LAM = 1e-12       # the eigen path's lam (core/blocks/kron.py)
 
 
-@contextlib.contextmanager
-def forced(name: str, plan_of):
-    """Make ``gemm_plan.<name>`` return ``plan_of(*args)`` inside."""
-    from repro_torch.kernels import gemm_plan
-    keep = getattr(gemm_plan, name)
-    setattr(gemm_plan, name, plan_of)
-    try:
-        yield
-    finally:
-        setattr(gemm_plan, name, keep)
-
-
-def table(label, name, pick, options, k, out_floats, call, sms) -> None:
+def table(label, name, pick, options, k, out_floats, call, sms,
+          top=None) -> None:
     from repro_torch.kernels import gemm_plan
     cells = []
-    top = gemm_plan.max_splits(k)
+    top = top or gemm_plan.max_splits(k)
     for tile, tiles, blocks, fold in options:
         extra = {pick.splits} if tile == pick.tile else set()
         for s in sorted({s for s in SPLITS if s <= top} | extra):
@@ -58,7 +50,7 @@ def table(label, name, pick, options, k, out_floats, call, sms) -> None:
             if used != s:
                 continue
             plan = gemm_plan.Plan(tile, tiles, blocks, chunk, used, fold)
-            with forced(name, lambda *_, plan=plan: plan):
+            with chip_smoke.forced(name, lambda *_, plan=plan: plan):
                 dev_ms = chip_smoke.graph_ms(call)
                 eager = chip_smoke.eager_ms(call, reps=20)
             model = gemm_plan.cost(tile, blocks, chunk, used, sms,
@@ -77,6 +69,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.configs.autoencoder import CONFIG
     from repro_torch.kernels import gemm_plan
+    from repro_torch.kernels.factor_update import factor_update
     from repro_torch.kernels.patch_factor import (patch_factor_update,
                                                   patch_geometry)
     from repro_torch.kernels.rotate_rescale import matmul_rescale
@@ -117,6 +110,30 @@ def main() -> None:
               sms)
         del x, old
 
+    n_rows = chip_smoke.N_ROWS
+    sides = [d for ag in layers for d in ag]
+    fus = []
+    for d in sides:
+        x = torch.tanh(torch.randn(n_rows, d, generator=g, device=dev))
+        fus.append((x, torch.eye(d, device=dev)))
+    for d in sorted(set(sides)):
+        x, c = fus[sides.index(d)]
+        table(f"factor_update X({n_rows},{d})", "triangle_plan",
+              gemm_plan.triangle_plan(d, d, False, n_rows, sms),
+              gemm_plan.triangle_options(d, d, False), n_rows, d * d,
+              lambda x=x, c=c: factor_update(x, c, alpha=1 - eps, beta=eps),
+              sms)
+    for s_, n, d in chip_smoke.FU_WHISPER:
+        x = torch.tanh(torch.randn(s_, n, d, generator=g, device=dev))
+        c = torch.eye(d, device=dev).expand(s_, d, d).contiguous()
+        table(f"factor_update batched X({s_},{n},{d})", "triangle_plan",
+              gemm_plan.triangle_plan(d, d, False, n, sms, s_),
+              [(t, ts, s_ * b, f) for t, ts, b, f in
+               gemm_plan.triangle_options(d, d, False)], n, s_ * d * d,
+              lambda x=x, c=c: factor_update(x, c, alpha=1 - eps, beta=eps),
+              sms, top=1)
+        del x, c
+
     def whole(batch, m, n, k, sms_):
         tile, tiles, blocks, fold = gemm_plan.dense_options(batch, m, n)[0]
         return gemm_plan.Plan(tile, tiles, blocks, *gemm_plan.chunks(k, 1),
@@ -124,11 +141,26 @@ def main() -> None:
 
     run = lambda: [matmul_rescale(t, q, sd, LAM) for t, q, sd in mids]
     picked = (chip_smoke.graph_ms(run), chip_smoke.eager_ms(run, reps=20))
-    with forced("dense_plan", whole):
+    with chip_smoke.forced("dense_plan", whole):
         unsplit = (chip_smoke.graph_ms(run), chip_smoke.eager_ms(run, reps=20))
     print(f"  the 8 products of an eigen step: planner's plans "
           f"{picked[0]:.4f} [{picked[1]:.4f}] ms, K whole {unsplit[0]:.4f} "
           f"[{unsplit[1]:.4f}] ms")
+
+    def rows_whole(d, core, has_bias, rows, sms_, batch=1):
+        tile, tiles, blocks, fold = gemm_plan.triangle_options(
+            d, core, has_bias)[0]
+        return gemm_plan.Plan(tile, tiles, batch * blocks,
+                              *gemm_plan.chunks(rows, 1), fold)
+
+    run = lambda: [factor_update(x, c, alpha=1 - eps, beta=eps)
+                   for x, c in fus]
+    picked = (chip_smoke.graph_ms(run), chip_smoke.eager_ms(run, reps=20))
+    with chip_smoke.forced("triangle_plan", rows_whole):
+        unsplit = (chip_smoke.graph_ms(run), chip_smoke.eager_ms(run, reps=20))
+    print(f"  the 16 factor sides of a step: planner's plans "
+          f"{picked[0]:.4f} [{picked[1]:.4f}] ms, the 128 tile with the "
+          f"rows whole {unsplit[0]:.4f} [{unsplit[1]:.4f}] ms")
 
 
 if __name__ == "__main__":
