@@ -61,7 +61,14 @@ on failure (nothing is caught):
             1 - eps) at a ragged case, d = 65 and 129 and conv2.
             matmul_rescale also at the main loop's edges: K = N = 30 and
             250 (4-byte copies), a B off a 16-byte boundary and a split K.
-            Both print their share of the bound and achieved TFLOP/s
+            matmul (the 128 or the 64 tile, K whole or split, from
+            ``gemm_plan.dense_plan``) also at whisper-small's stacked
+            Newton-Schulz step, M and X (12, 768, 768) and (12, 3072,
+            3072), timed beside bmm + baddbmm; each timed unit's matmul
+            plans are printed, and its registers and spills at both tiles
+            from the build log (over 128 or a spill fails the phase).
+            These, matmul_rescale, patch_factor and factor_update print
+            their share of the bound and achieved TFLOP/s
             (``tools/plan_sweep.py`` times the launch plans their planner
             weighs; it is not a phase of this script).
 4. agree    the reduced autoencoder (64-32-16-8 mirrored, N = 256) for 6
@@ -891,6 +898,15 @@ def ptxas_resources(log: str, kernel: str) -> list:
     return [tuple(r) for r in out]
 
 
+def mm_plan(batch: int, m: int, n: int, k: int) -> str:
+    """matmul's plan for ([batch,] m, k) @ (k, n) on this card (row-major,
+    aligned operands), as "batch x m x n x k: tile/splits"."""
+    from repro_torch.kernels import gemm_plan
+    tiles = gemm_plan.MATMUL_TILES if n % 4 == 0 else (gemm_plan.DENSE_TILE,)
+    p = gemm_plan.dense_plan(batch, m, n, k, gemm_plan.sm_count(0), tiles)
+    return f"{batch}x{m}x{n}x{k}: {p.tile}/{p.splits}"
+
+
 @contextlib.contextmanager
 def forced(name: str, plan_of):
     """Make ``gemm_plan.<name>`` return ``plan_of(*args)`` inside."""
@@ -1545,6 +1561,7 @@ def main() -> None:
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticAutoencoderData
     from repro_torch.kernels import _build
+    from repro_torch.kernels import gemm_plan
     from repro_torch.kernels.gemm_plan import dense_plan as mr_plan
     from repro_torch.kernels.gemm_plan import sm_count
     from repro_torch.kernels.matmul import matmul, matmul_ref, operands
@@ -1555,7 +1572,6 @@ def main() -> None:
                                                     matmul_rescale_ref,
                                                     rotate_rescale,
                                                     rotate_rescale_ref)
-    from repro_torch.kernels.rotate_rescale import vec16 as mr_vec16
     from repro_torch.kernels.update_chain import (axpy_momentum,
                                                   axpy_momentum_ref,
                                                   precond_momentum,
@@ -1601,7 +1617,10 @@ def main() -> None:
         compare(f"precondition a={a} g={gd}", precondition(ai, v, gi),
                 precondition_ref(ai, v, gi), errs)
     pc = lambda f: [f(*o) for o in ops]
+    # matmul's plans, (a, g) @ (g, g) then (a, a) @ (a, g), of each layer
+    pc_plans = [mm_plan(1, a, gd, k_) for a, gd in layers for k_ in (gd, a)]
     rows["precondition"] = dict(
+        plans=pc_plans,
         source="src/repro_torch/kernels/precond.py",
         replaces="src/repro/kernels/precond.py:12",
         unit="all 8 layers of one step (two matmul launches each)",
@@ -1632,11 +1651,22 @@ def main() -> None:
     v1000 = randn(1001, 1000)
     compare("matmul (1001,1001)@(1001,1000)", matmul(m3[0], v1000),
             matmul_ref(m3[0], v1000), errs)
+    # from this process's build log (empty when an existing build loaded)
+    resources = ptxas_resources(lib.log, "matmul_kernel")
+    for args, regs, st, ld in resources:
+        print(f"  matmul_kernel<{args}>: {regs} registers, spill stores "
+              f"{st} B, loads {ld} B")
+    tiles = {r[0].split("E")[0] for r in resources}
+    if ((lib.log and not tiles >= {"ILi128", "ILi64"})
+            or any(st or ld or regs > 128 for _, regs, st, ld in resources)):
+        raise AssertionError(f"matmul: a tile missing, over 128 registers "
+                             f"or spilling: {resources}")
     rows["matmul"] = dict(
         source="src/repro_torch/csrc/matmul.cu",
         replaces="src/repro/kernels/matmul.py:42",
         unit="one batched launch (3,1001,1001)@(3,1001,1001), the gamma "
              "sweep's Z = M X for the widest factor",
+        plans=[mm_plan(3, 1001, 1001, 1001)], registers=resources,
         max_abs_err=max(errs),
         **timings(lambda: matmul(m3, x3), lambda: matmul_ref(m3, x3),
                   lambda: torch.bmm(m3, x3)),
@@ -1667,12 +1697,37 @@ def main() -> None:
         source="src/repro_torch/kernels/ns_step.py",
         replaces="src/repro/kernels/ns_step.py:17",
         unit="one full Newton-Schulz refresh: 16 factors x 12 steps",
-        max_abs_err=max(errs),
+        plans=[mm_plan(1, d, d, d) for d in sides],
         **timings(lambda: refresh(ns_step), lambda: refresh(ns_step_ref),
                   lambda: refresh(lambda m, x: torch.addmm(
                       x, x, torch.mm(m, x), beta=2.0, alpha=-1.0)), reps=3),
         bound=bound_ms(4.0 * 12 * cube, 4.0 * sum(2 * d * d for d in sides)))
     del ms_, x0s
+    # whisper-small's stacked Newton-Schulz step: the 12 layers' (768, 768)
+    # and (3072, 3072) factors, one ns_step each (two batched launches); a
+    # second generator leaves randn's draws as they were
+    rows["ns_step"]["cases"] = {}
+    gw = torch.Generator(device=dev).manual_seed(3)
+    for d in (768, 3072):
+        f = torch.randn(12, d, 512, generator=gw, device=dev)
+        m = (torch.bmm(f, f.transpose(1, 2)) / 512
+             + 0.1 * torch.eye(d, device=dev))
+        del f
+        x0 = torch.eye(d, device=dev) / m.abs().sum(-1).amax(-1)[:, None,
+                                                                   None]
+        x = ns_step_ref(m, x0)
+        del x0
+        compare(f"ns_step whisper-small stacked (12,{d},{d})", ns_step(m, x),
+                ns_step_ref(m, x), errs)
+        rows["ns_step"]["cases"][f"whisper-small {d}"] = dict(
+            unit=f"one stacked ns_step, M and X (12, {d}, {d})",
+            plans=[mm_plan(12, d, d, d)],
+            **timings(lambda: ns_step(m, x), lambda: ns_step_ref(m, x),
+                      lambda: torch.baddbmm(x, x, torch.bmm(m, x), beta=2,
+                                            alpha=-1)),
+            bound=bound_ms(4.0 * 12 * d ** 3, 4.0 * 12 * 3 * d * d))
+        del m, x
+    rows["ns_step"]["max_abs_err"] = max(errs)
 
     # rotate_rescale / matmul_rescale: every (a, g) pair of the 8 layers,
     # orthonormal bases from eigh on the card, lam as a device scalar
@@ -1709,7 +1764,7 @@ def main() -> None:
         q = torch.randn(k_ * k_ + off, generator=ge,
                         device=dev)[off:].view(k_, k_)
         sd_ = torch.rand(m_, k_, generator=ge, device=dev) + 0.05
-        vec = mr_vec16(operands("matmul_rescale", t, q, sd_))
+        vec = gemm_plan.dense_vec16(operands("matmul_rescale", t, q, sd_))
         plan = mr_plan(1, m_, k_, k_, sm_count(0))
         plans.add((plan.splits > 1, vec))
         compare(f"matmul_rescale ({m_},{k_}) b+{off} splits {plan.splits} "
@@ -1722,6 +1777,9 @@ def main() -> None:
     mids = [(qa.T @ v, qg, sd) for qa, v, qg, sd in eops]
     rr = lambda f: [f(*o, lam) for o in eops]
     rows["rotate_rescale"] = dict(
+        # matmul's three launches a layer: Q_Aᵀ V, Q_A ·, · Q_Gᵀ
+        plans=[mm_plan(1, a, gd, k_) for a, gd in layers
+               for k_ in (a, a, gd)],
         source="src/repro_torch/kernels/rotate_rescale.py",
         replaces="src/repro/kernels/rotate_rescale.py:86",
         unit="all 8 layers of one step (four launches each)",
@@ -1839,11 +1897,24 @@ def main() -> None:
           f"[{wu['eager_ms']['ms']:.4f}] ms, plain {wu['plain_ms']:.4f} ms, "
           f"library {wu['library_ms']:.4f} ms (baddbmm), bound "
           f"{wu['bound'][0]:.4f} ms ({wu['bound'][1]})")
+    for label, r in rows["ns_step"]["cases"].items():
+        print(f"  ns_step {r['unit']}: kernel {r['ms']:.4f} "
+              f"[{r['eager_ms']['ms']:.4f}] ms, plain {r['plain_ms']:.4f} "
+              f"ms, library {r['library_ms']:.4f} ms (bmm + baddbmm), bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    for name in ("matmul", "precondition", "ns_step", "rotate_rescale"):
+        print(f"  {name} matmul plans (batch x m x n x k: tile/splits): "
+              f"{rows[name]['plans']}")
+    for label, r in rows["ns_step"]["cases"].items():
+        print(f"  ns_step {label} matmul plans: {r['plans']}")
     print(f"  patch_factor bound of the full (d, d) product: "
           f"{rows['patch_factor']['full_product_bound_ms']:.4f} ms")
     for name, r in [(name, rows[name]) for name in (
+            "matmul", "precondition", "ns_step", "rotate_rescale",
             "matmul_rescale", "patch_factor", "factor_update")] + [
-            ("factor_update whisper-small", wu)]:
+            ("factor_update whisper-small", wu)] + [
+            (f"ns_step {label}", r)
+            for label, r in rows["ns_step"]["cases"].items()]:
         print(f"  {name}: {r['bound'][0] / r['ms']:.1%} of its bound, "
               f"{r['bound'][0] * FP32_FLOPS / 1e12 / r['ms']:.2f} TFLOP/s "
               f"(the bound's operations over the device time)")
@@ -2018,6 +2089,7 @@ def main() -> None:
             "library_calls": r.get("library_calls"),
             "eager_ms": r["eager_ms"], "unit": r["unit"],
             "n_split": r.get("n_split"), "host_us": r.get("host_us"),
+            "plans": r.get("plans"), "registers": r.get("registers"),
             "cases": r.get("cases")})
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"main": main_out, "eigh_16_factors_eager_ms": eigh_ms,

@@ -168,10 +168,7 @@ int launch_tile(const float* x, const float* c, float* out, float* ws,
                                            tiles, chunk, splits, stream);
   if (status != 0) return status;
   const long long dd = static_cast<long long>(d) * d;
-  const int threads = 256;
-  sum_partials_kernel<<<static_cast<unsigned>((dd + threads - 1) / threads),
-                        threads, 0, stream>>>(ws, splits, dd, c, ab, out);
-  return static_cast<int>(cudaGetLastError());
+  return sum_partials(ws, splits, dd, dd, c, 0, ab, 0.f, 0.f, out, stream);
 }
 
 }  // namespace

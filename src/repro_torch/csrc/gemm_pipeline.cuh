@@ -1,6 +1,6 @@
 // Pipelined fp32 GEMM main loop for Hopper's CUDA cores, shared by
-// matmul_rescale (rotate_rescale.cu), patch_factor (patch_factor.cu) and
-// factor_update (factor_update.cu):
+// matmul (matmul.cu), matmul_rescale (rotate_rescale.cu), patch_factor
+// (patch_factor.cu) and factor_update (factor_update.cu):
 //
 //   acc[m][n] = sum_k A_tile[k][m] * B_tile[k][n]
 //
@@ -14,8 +14,10 @@
 //   memory (four float4 loads, the A ones broadcast across the 8 lanes of a
 //   row group) for 64 FMAs, so the inner loop is bound by the FMA units, not
 //   by shared-memory bandwidth.  The 64 x 64 tile (4 x 4 patches, float2
-//   loads) serves the dense products and the symmetric ones whose 128-tiles
-//   cannot fill the card.  All arithmetic is fp32 FMA: no TF32.
+//   loads) serves the products whose 128-tiles cannot fill the card, and
+//   the dense ones whose B cannot be copied 16 bytes at a time (the 128
+//   tile's 4-byte B loader does not fit 128 registers).  All arithmetic is
+//   fp32 FMA: no TF32.
 // - An asynchronous ring.  kStages slices live in dynamic shared memory;
 //   cp.async fetches slice k + kStages - 1 while slice k is multiplied, and
 //   one __syncthreads per slice orders the ring.
@@ -34,11 +36,14 @@
 //   one triangle of tiles.
 //
 // A split of K over blocks, with the partial sums added in a second pass
-// in a fixed order, is the caller's: it picks the tile and the split on the
-// host (kernels/gemm_plan.py) and hands each block its [k_begin, k_end).
+// in a fixed order (sum_partials.cuh), is the caller's: it picks the tile
+// and the split on the host (kernels/gemm_plan.py) and hands each block its
+// [k_begin, k_end).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace repro_torch {
 namespace pipe {
@@ -121,6 +126,16 @@ __device__ __forceinline__ void lds(float* r, const float* p) {
   }
 }
 
+template <int BM, int BN, bool VEC, bool A_ROWS>
+struct DenseLoader;
+
+// Whether a loader stages A as rows [m][kBK] (DenseLoader<..., true>)
+// rather than k-major; every other loader stages it k-major.
+template <class Loader>
+constexpr bool kARows = false;
+template <int BM, int BN, bool VEC>
+constexpr bool kARows<DenseLoader<BM, BN, VEC, true>> = true;
+
 // acc += the product of `slices` K slices of the loader's tiles.  smem: the
 // block's dynamic shared memory, kStages stages of Tile::kStageFloats.
 template <int BM, int BN, class Loader>
@@ -144,18 +159,45 @@ __device__ __forceinline__ void mainloop(
     const float* As = smem + (kt % kStages) * T::kStageFloats;
     const float* Bs = As + kBK * T::kLdA;
     ld.staged(As);
+    if constexpr (kARows<std::remove_const_t<Loader>>) {
+      // A rows [m][kBK], chunk c of row m at chunk c ^ swizzle(m): a float4
+      // gives 4 K steps of one row; the sums run in the same order as
+      // k-major
+      const int sw = (threadIdx.x & 31) >> 3;  // swizzle of all my rows
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[T::kTM], b[T::kTN];
-      lds<T::kGM>(a, As + kk * T::kLdA + ra);
-      lds<T::kGM>(a + T::kGM, As + kk * T::kLdA + ra + T::kWM / 2);
-      lds<T::kGN>(b, Bs + kk * T::kLdB + cb);
-      lds<T::kGN>(b + T::kGN, Bs + kk * T::kLdB + cb + T::kWN / 2);
+      for (int c = 0; c < kBK / 4; ++c) {
+        float a[T::kTM][4];
 #pragma unroll
-      for (int i = 0; i < T::kTM; ++i)
+        for (int i = 0; i < T::kTM; ++i)
+          lds<4>(a[i], As + (ra + (i / T::kGM) * (T::kWM / 2) + i % T::kGM) *
+                                kBK + 4 * (c ^ sw));
 #pragma unroll
-        for (int j = 0; j < T::kTN; ++j)
-          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int q = 0; q < 4; ++q) {
+          float b[T::kTN];
+          lds<T::kGN>(b, Bs + (4 * c + q) * T::kLdB + cb);
+          lds<T::kGN>(b + T::kGN, Bs + (4 * c + q) * T::kLdB + cb +
+                                      T::kWN / 2);
+#pragma unroll
+          for (int i = 0; i < T::kTM; ++i)
+#pragma unroll
+            for (int j = 0; j < T::kTN; ++j)
+              acc[i][j] = fmaf(a[i][q], b[j], acc[i][j]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kBK; ++kk) {
+        float a[T::kTM], b[T::kTN];
+        lds<T::kGM>(a, As + kk * T::kLdA + ra);
+        lds<T::kGM>(a + T::kGM, As + kk * T::kLdA + ra + T::kWM / 2);
+        lds<T::kGN>(b, Bs + kk * T::kLdB + cb);
+        lds<T::kGN>(b + T::kGN, Bs + kk * T::kLdB + cb + T::kWN / 2);
+#pragma unroll
+        for (int i = 0; i < T::kTM; ++i)
+#pragma unroll
+          for (int j = 0; j < T::kTN; ++j)
+            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
     }
   }
   cp_async_wait<0>();
@@ -164,12 +206,18 @@ __device__ __forceinline__ void mainloop(
 // Row-major operands: A (M, K) with A[m * K + k], B (K, N) with B[k * N + n],
 // the block's tile at (row0, col0), K rows [k_begin, k_end).  A is staged
 // k-major by 4-byte copies, each to its transposed place (lanes take 8 k by
-// 4 m, so the stores hit 32 distinct banks at kLdA = BM + 4); B is copied
-// as it lies, 16 bytes at a time when VEC (N % 4 == 0 and a 16-byte
-// aligned B: the caller's plan checks both), else 4.
-template <int BM, int BN, bool VEC>
+// 4 m, so the stores hit 32 distinct banks at kLdA = BM + 4), or, with
+// A_ROWS (K % 4 == 0 and a 16-byte aligned A: the caller checks both), as
+// rows [m][kBK] by 16-byte copies, chunk c of row m at chunk c ^ ((m / kGM)
+// & 3), so that the four row groups a warp reads at once lie in four bank
+// quads; the main loop then reads 4 K steps of a row at once, half the
+// shared-memory reads of A.  B is copied as it lies, 16 bytes at a time
+// when VEC (N % 4 == 0 and a 16-byte aligned B: the caller checks both),
+// else 4.
+template <int BM, int BN, bool VEC, bool A_ROWS = false>
 struct DenseLoader {
   using T = Tile<BM, BN>;
+  static_assert(BM * kBK <= kBK * T::kLdA, "A rows fit A's stage area");
   const float* A;
   const float* B;
   int M, N, K, row0, col0, k_begin, k_end;
@@ -178,15 +226,27 @@ struct DenseLoader {
     const int k0 = k_begin + slice * kBK;
     float* As = stage;
     float* Bs = stage + kBK * T::kLdA;
+    if constexpr (A_ROWS) {
 #pragma unroll
-    for (int e = 0; e < BM * kBK / kThreads; ++e) {
-      const int idx = threadIdx.x + e * kThreads;
-      const int m = (idx >> 3) % BM;
-      const int k = (idx & 7) + 8 * ((idx >> 3) / BM);
-      const int gm = row0 + m, gk = k0 + k;
-      const bool ok = gm < M && gk < k_end;
-      cp_async4(As + k * T::kLdA + m,
-                ok ? A + static_cast<long long>(gm) * K + gk : A, ok);
+      for (int e = 0; e < BM * kBK / 4 / kThreads; ++e) {
+        const int idx = threadIdx.x + e * kThreads;
+        const int m = idx / (kBK / 4), c = idx % (kBK / 4);
+        const int gm = row0 + m, gk = k0 + 4 * c;
+        const bool ok = gm < M && gk < k_end;
+        cp_async16(As + m * kBK + 4 * (c ^ ((m / T::kGM) & 3)),
+                   ok ? A + static_cast<long long>(gm) * K + gk : A, ok);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < BM * kBK / kThreads; ++e) {
+        const int idx = threadIdx.x + e * kThreads;
+        const int m = (idx >> 3) % BM;
+        const int k = (idx & 7) + 8 * ((idx >> 3) / BM);
+        const int gm = row0 + m, gk = k0 + k;
+        const bool ok = gm < M && gk < k_end;
+        cp_async4(As + k * T::kLdA + m,
+                  ok ? A + static_cast<long long>(gm) * K + gk : A, ok);
+      }
     }
     if constexpr (VEC) {
 #pragma unroll
@@ -217,13 +277,15 @@ struct DenseLoader {
 enum Epilogue : int {
   kStore,    // O = acc: a K split's partial sum
   kAxpby,    // O = alpha * acc + beta * C
+  kScale,    // O = alpha * acc: no C
   kRescale,  // O = acc / (C + alpha): the damped eigenbasis rescale
 };
 
 // Writes the thread's patch of the tile at (row0, col0) into the (rows,
 // cols) output O with leading dimension ld; C has O's layout.  With
-// `mirror` (kStore, kAxpby), entry (n, m) also gets acc[m][n], with C's own
-// (n, m) entry: a triangle of tiles of a symmetric product fills the other.
+// `mirror` (every epilogue but kRescale), entry (n, m) also gets acc[m][n],
+// with C's own (n, m) entry: a triangle of tiles of a symmetric product
+// fills the other.
 template <int EPI, int BM, int BN>
 __device__ __forceinline__ void store_tile(
     const float (&acc)[Tile<BM, BN>::kTM][Tile<BM, BN>::kTN],
@@ -244,13 +306,17 @@ __device__ __forceinline__ void store_tile(
         O[o] = v / (C[o] + alpha);
       } else if constexpr (EPI == kAxpby) {
         O[o] = fmaf(beta, C[o], alpha * v);
+      } else if constexpr (EPI == kScale) {
+        O[o] = alpha * v;
       } else {
         O[o] = v;
       }
       if constexpr (EPI != kRescale) {
         if (mirror) {
           const long long t = static_cast<long long>(n) * ld + m;
-          O[t] = EPI == kAxpby ? fmaf(beta, C[t], alpha * v) : v;
+          O[t] = EPI == kAxpby  ? fmaf(beta, C[t], alpha * v)
+                 : EPI == kScale ? alpha * v
+                                 : v;
         }
       }
     }

@@ -1,11 +1,12 @@
-// Shared-memory tiled fp32 GEMM with a choice of epilogues, the body of two
-// hand-written kernels of this package:
+// Shared-memory tiled fp32 GEMM, the body of one hand-written kernel of
+// this package:
 //
-//   matmul.cu          O[b] = alpha * A[b] @ B[b] + beta * C[b]    (kAxpby)
 //   update_chain.cu    O    = alpha * A @ B + beta * C, + sum O^2  (kAxpyNorm)
 //
-// (factor_update.cu, patch_factor.cu and rotate_rescale.cu run the
-// pipelined main loop of gemm_pipeline.cuh instead.)
+// kAxpby, the plain form of that epilogue, is no longer launched: matmul.cu,
+// factor_update.cu, patch_factor.cu and rotate_rescale.cu run the pipelined
+// main loop of gemm_pipeline.cuh instead.  This file goes once
+// update_chain.cu moves there too.
 //
 // Design (simple and correct first): a 64 x 64 output tile per block of 256
 // threads, each thread owning a 4 x 4 register patch; K is a loop inside the
@@ -16,10 +17,8 @@
 // wgmma/TMA pipelines are later work.
 //
 // The epilogue is a template parameter that only the final loop over the
-// register patch reads, so the kAxpby instantiation of matmul carries no
-// code of the other epilogue (one unused pointer aside) and keeps its
-// register count, 70.  An epilogue passed as a functor instead gave the plain
-// matmul 91 registers and cost it 15%.
+// register patch reads (an epilogue passed as a functor instead gave the
+// plain kAxpby product 91 registers against 70 and cost it 15%).
 //
 // alpha/beta come either by value or, when `ab` is non-null, from a
 // 2-float device buffer read inside the kernel, so values that live on the

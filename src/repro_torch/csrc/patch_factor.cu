@@ -213,10 +213,7 @@ int launch_tile(const Geometry& g, int tiles, int fold, int rows, int chunk,
                                            stream);
   if (status != 0) return status;
   const long long dd = static_cast<long long>(g.d) * g.d;
-  const int threads = 256;
-  sum_partials_kernel<<<static_cast<unsigned>((dd + threads - 1) / threads),
-                        threads, 0, stream>>>(ws, splits, dd, c, ab, out);
-  return static_cast<int>(cudaGetLastError());
+  return sum_partials(ws, splits, dd, dd, c, 0, ab, 0.f, 0.f, out, stream);
 }
 
 }  // namespace

@@ -8,9 +8,11 @@
 // register patches, a cp.async ring of K slices) with its dense loader, and
 // the division is the epilogue (kRescale), applied once to the full sum
 // while it is in registers, so the eigenbasis gradient is never written
-// undivided and re-read.  Where the output's tiles cannot fill the card,
-// the host plan (kernels/gemm_plan.py) splits K over grid z: each block
-// writes its raw partial sum to `ws`, and
+// undivided and re-read.  A is staged as rows by 16-byte copies where K % 4
+// == 0 and A is aligned (half the main loop's shared-memory reads of A),
+// else k-major by 4-byte copies.  Where the output's tiles cannot fill the
+// card, the host plan (kernels/gemm_plan.py) splits K over grid z: each
+// block writes its raw partial sum to `ws`, and
 // rescale_partials_kernel adds the partials in a fixed order and divides
 // (no atomics).  lam comes by value or, when lam_dev is non-null, as a
 // device float read inside the kernel (a traced damping, no host read).
@@ -28,7 +30,7 @@ constexpr int kTile = 64;   // output tile edge (gemm_plan.DENSE_TILE)
 // Block (x, y, z): output tile (y, x) of batch z / splits, summing K rows
 // [(z % splits) * chunk, ... + chunk).  kRescale writes out[b]; kStore
 // writes the raw partial to ws[z % splits][b].
-template <int BM, int BN, bool VEC, int EPI>
+template <int BM, int BN, bool VEC, bool A_ROWS, int EPI>
 __global__ void __launch_bounds__(pipe::kThreads, 2)
 matmul_rescale_kernel(const float* __restrict__ A,
                       const float* __restrict__ B,
@@ -41,8 +43,8 @@ matmul_rescale_kernel(const float* __restrict__ A,
   const int bz = blockIdx.z / splits, z = blockIdx.z % splits;
   const int k_begin = z * chunk, k_end = min(K, k_begin + chunk);
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const pipe::DenseLoader<BM, BN, VEC> ld{A + bz * sA, B + bz * sB, M, N, K,
-                                          row0, col0, k_begin, k_end};
+  const pipe::DenseLoader<BM, BN, VEC, A_ROWS> ld{
+      A + bz * sA, B + bz * sB, M, N, K, row0, col0, k_begin, k_end};
   float acc[T::kTM][T::kTN] = {};
   const int slices = max(0, k_end - k_begin + pipe::kBK - 1) / pipe::kBK;
   pipe::mainloop<BM, BN>(ld, reinterpret_cast<float*>(smem4), slices, acc);
@@ -77,33 +79,33 @@ __global__ void rescale_partials_kernel(const float* __restrict__ ws,
   out[i] = s / (S[(i / mn) * sS + i % mn] + lam);
 }
 
-template <int BM, int BN, bool VEC, int EPI>
+template <int BM, int BN, bool VEC, bool A_ROWS, int EPI>
 int launch(const float* a, const float* b, const float* s, float* o,
            int batch, int m, int n, int k, int chunk, int splits,
            long long sa, long long sb, long long ss, long long so,
            const float* lam_dev, float lam, cudaStream_t stream) {
   constexpr int smem = pipe::Tile<BM, BN>::kSmemBytes;
-  static const int allowed =
-      pipe::allow_smem(matmul_rescale_kernel<BM, BN, VEC, EPI>, smem);
+  static const int allowed = pipe::allow_smem(
+      matmul_rescale_kernel<BM, BN, VEC, A_ROWS, EPI>, smem);
   if (allowed != 0) return allowed;
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch * splits);
-  matmul_rescale_kernel<BM, BN, VEC, EPI>
+  matmul_rescale_kernel<BM, BN, VEC, A_ROWS, EPI>
       <<<grid, pipe::kThreads, smem, stream>>>(
           a, b, s, o, m, n, k, chunk, splits, sa, sb, ss, so, lam_dev, lam);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool VEC>
+template <bool VEC, bool A_ROWS>
 int launch_plan(const float* a, const float* b, const float* s, float* out,
                 float* ws, int batch, int m, int n, int k, int chunk,
                 int splits, long long sa, long long sb, long long ss,
                 long long so, const float* lam_dev, float lam,
                 cudaStream_t stream) {
   if (splits <= 1)
-    return launch<kTile, kTile, VEC, pipe::kRescale>(
+    return launch<kTile, kTile, VEC, A_ROWS, pipe::kRescale>(
         a, b, s, out, batch, m, n, k, chunk, 1, sa, sb, ss, so, lam_dev, lam,
         stream);
-  const int status = launch<kTile, kTile, VEC, pipe::kStore>(
+  const int status = launch<kTile, kTile, VEC, A_ROWS, pipe::kStore>(
       a, b, nullptr, ws, batch, m, n, k, chunk, splits, sa, sb, 0, 0,
       nullptr, 0.f, stream);
   if (status != 0) return status;
@@ -121,7 +123,8 @@ int launch_plan(const float* a, const float* b, const float* s, float* out,
 // chunk (K rows a block sums, a multiple of 16) and splits (K chunks; > 1
 // sums partials in ws, (splits, batch, m, n)) come from the host plan; vec:
 // B's rows are copied 16 bytes at a time (n % 4 == 0 and b 16-byte
-// aligned).  out is contiguous ([batch,] m, n).
+// aligned); arows: A staged as rows by 16-byte copies (k % 4 == 0, sa % 4
+// == 0 and a 16-byte aligned).  out is contiguous ([batch,] m, n).
 extern "C" int repro_matmul_rescale_f32(const float* a, const float* b,
                                         const float* s, float* out, float* ws,
                                         int batch, int m, int n, int k,
@@ -129,14 +132,24 @@ extern "C" int repro_matmul_rescale_f32(const float* a, const float* b,
                                         long long ss, long long so,
                                         const float* lam_dev, float lam,
                                         int chunk, int splits, int vec,
-                                        void* stream) {
+                                        int arows, void* stream) {
   if (batch <= 0 || m <= 0 || n <= 0) return 0;
   if (chunk <= 0 || chunk % pipe::kBK != 0 || splits <= 0 ||
-      (splits > 1 && ws == nullptr))
+      (splits > 1 && ws == nullptr) ||
+      (arows && (k % 4 != 0 || sa % 4 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  return vec ? launch_plan<true>(a, b, s, out, ws, batch, m, n, k, chunk,
-                                 splits, sa, sb, ss, so, lam_dev, lam, st)
-             : launch_plan<false>(a, b, s, out, ws, batch, m, n, k, chunk,
-                                  splits, sa, sb, ss, so, lam_dev, lam, st);
+  if (vec)
+    return arows ? launch_plan<true, true>(a, b, s, out, ws, batch, m, n, k,
+                                           chunk, splits, sa, sb, ss, so,
+                                           lam_dev, lam, st)
+                 : launch_plan<true, false>(a, b, s, out, ws, batch, m, n, k,
+                                            chunk, splits, sa, sb, ss, so,
+                                            lam_dev, lam, st);
+  return arows ? launch_plan<false, true>(a, b, s, out, ws, batch, m, n, k,
+                                          chunk, splits, sa, sb, ss, so,
+                                          lam_dev, lam, st)
+               : launch_plan<false, false>(a, b, s, out, ws, batch, m, n, k,
+                                           chunk, splits, sa, sb, ss, so,
+                                           lam_dev, lam, st);
 }

@@ -34,9 +34,10 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # a, b, c, out, batch, m, n, k, sa, sb, sc, so, ab, alpha, beta, stream
-    "repro_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
-                         _P, _F, _F, _P],
+    # a, b, c, out, ws, batch, m, n, k, sa, sb, sc, so, ab, alpha, beta,
+    # tile, chunk, splits, bvec, arows, stream
+    "repro_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
+                         _P, _F, _F, _I, _I, _I, _I, _I, _P],
     # x, c, out, ws, batch, n, d, tile, tiles, chunk, splits, vec, ab,
     # stream
     "repro_factor_update_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -46,9 +47,9 @@ _SIGNATURES = {
     "repro_patch_factor_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # a, b, s, out, ws, batch, m, n, k, sa, sb, ss, so, lam_dev, lam, chunk,
-    # splits, vec, stream
+    # splits, vec, arows, stream
     "repro_matmul_rescale_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
-                                 _L, _L, _P, _F, _I, _I, _I, _P],
+                                 _L, _L, _P, _F, _I, _I, _I, _I, _P],
     # a_inv, t, mom, out, partials, m, n, k, am, stream
     "repro_axpy_momentum_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # q, k, v, lengths, out, ws, b, hq, hkv, hd, s, sb, sh, ss, window, cap,

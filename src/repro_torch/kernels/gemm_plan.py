@@ -2,13 +2,16 @@
 
 A plan fixes, per call, the output tile and the split of the summed
 dimension K over blocks (rows of P̂ for ``patch_factor``, of X for
-``factor_update``); the wrappers add the copy width of the loader, which
-depends on the operands' addresses.
+``factor_update``); the wrappers add the copy widths of the loader, which
+depend on the operands' addresses (:func:`dense_vec16`,
+:func:`dense_rows16`).
 The kernels take the plan as it is; the choices live here, in Python, where
-the CPU tests reach them.  Dense products (``matmul_rescale``) take the
-64×64 tile: no shape of the main path fills the card with 128-tiles.
-Symmetric products (``patch_factor``, ``factor_update``) weigh the 128 and
-the 64 tile.
+the CPU tests reach them.  Dense products weigh the tile edges their kernel
+has: ``matmul`` the 128 and the 64 tile (:data:`MATMUL_TILES`; the 128 tile
+pays off on whisper's stacked 3072-wide Newton–Schulz products),
+``matmul_rescale`` the 64 tile only (:data:`DENSE_TILE`).  Symmetric
+products (``patch_factor``, ``factor_update``) weigh the 128 and the 64
+tile.
 
 The choice follows a small cost model: the busiest SM runs
 ``ceil(blocks / SMs)`` blocks, each of ``2·T²·chunk`` operations, at the
@@ -31,7 +34,8 @@ import torch
 
 BK = 16                         # K rows per slice (gemm_pipeline.cuh kBK)
 TILES = (128, 64)               # symmetric products' tile edges, preferred
-DENSE_TILE = 64                 # dense products' tile edge
+DENSE_TILE = 64                 # matmul_rescale's tile edge
+MATMUL_TILES = (128, 64)        # matmul's tile edges, preferred
 _SM_FLOPS = {128: 2.6e11, 64: 2.4e11}   # fp32 FMA rate of one busy SM
 _FILL = {128: 1.1, 64: 1.4}     # blocks an SM holds to reach that rate
 _HBM = 3.35e12                  # bytes/s
@@ -92,17 +96,22 @@ def _best(options, k: int, sms: int, out_floats: int,
     return best[1]
 
 
-def dense_options(batch: int, m: int, n: int):
-    """[(tile, tiles, blocks, fold)] a dense product may take."""
-    tiles = _cdiv(m, DENSE_TILE) * _cdiv(n, DENSE_TILE)
-    return [(DENSE_TILE, tiles, batch * tiles, False)]
+def dense_options(batch: int, m: int, n: int, tiles=(DENSE_TILE,)):
+    """[(tile, tiles, blocks, fold)] a dense product may take, one for each
+    tile edge in ``tiles`` (those its kernel has)."""
+    out = []
+    for tile in tiles:
+        count = _cdiv(m, tile) * _cdiv(n, tile)
+        out.append((tile, count, batch * count, False))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def dense_plan(batch: int, m: int, n: int, k: int, sms: int) -> Plan:
-    """``out[b] = A[b] (m, k) @ B[b] (k, n)``: square tiles over (m, n),
-    grid z over batch × splits."""
-    return _best(dense_options(batch, m, n), k, sms, batch * m * n)
+def dense_plan(batch: int, m: int, n: int, k: int, sms: int,
+               tiles=(DENSE_TILE,)) -> Plan:
+    """``out[b] = A[b] (m, k) @ B[b] (k, n)``: square tiles over (m, n) of
+    one edge in ``tiles``, grid z over batch × splits."""
+    return _best(dense_options(batch, m, n, tiles), k, sms, batch * m * n)
 
 
 def triangle_tiles(d: int, core: int, has_bias: bool, tile: int):
@@ -146,3 +155,28 @@ def sm_count(index: int) -> int:
 def aligned16(t) -> bool:
     """Whether a tensor's first element lies on a 16-byte boundary."""
     return t.data_ptr() % 16 == 0
+
+
+def dense_vec16(op) -> bool:
+    """Whether the dense loader may copy B's rows 16 bytes at a time: its
+    width and batch stride are multiples of 4 floats and it starts on a
+    16-byte boundary (``op``: :class:`kernels.matmul.Operands`)."""
+    return op.n % 4 == 0 and op.strides[1] % 4 == 0 and aligned16(op.b)
+
+
+def matmul_tiles(op) -> tuple:
+    """The tile edges ``matmul``'s kernel offers for ``op``: the 128 tile
+    copies B 16 bytes at a time only (its 4-byte loader does not fit 128
+    registers), so a B that :func:`dense_vec16` refuses takes the 64."""
+    return MATMUL_TILES if dense_vec16(op) else (DENSE_TILE,)
+
+
+def dense_rows16(op, tile: int) -> bool:
+    """Whether the dense loader (``matmul``, ``matmul_rescale``) stages A
+    as rows by 16-byte copies: on the 64 tile (the rows' reads do not fit
+    the 128 tile's 128 registers), where K and A's batch stride are
+    multiples of 4 floats and A starts on a 16-byte boundary.  Else A is
+    staged k-major by 4-byte copies, each to its transposed place (ragged
+    K: 1001, 785, 501, 251, 31)."""
+    return (tile == DENSE_TILE and op.k % 4 == 0 and op.strides[0] % 4 == 0
+            and aligned16(op.a))

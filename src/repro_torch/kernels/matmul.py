@@ -5,15 +5,24 @@
 Replaces the Pallas TPU kernel ``repro/kernels/matmul.py::matmul``
 (``pallas_call`` at line 60).  The TPU kernel walked K as a sequential grid
 axis with a VMEM accumulator; Hopper blocks run in no order, so the CUDA
-kernel (``csrc/matmul.cu`` over ``csrc/gemm_tile.cuh``) loops over K inside
-each block and masks ragged edges instead of requiring 128-multiples.  An
-optional leading batch dim rides ``gridDim.z`` (the gamma sweep's 3
-candidates, the batched Newton–Schulz refresh).
+kernel (``csrc/matmul.cu``) runs the pipelined fp32 main loop of
+``csrc/gemm_pipeline.cuh`` over K inside each block (a ``cp.async`` ring of
+16-row slices) and masks ragged edges instead of requiring 128-multiples.
+An optional leading batch dim rides grid z (the gamma sweep's 3
+candidates, the batched Newton–Schulz refresh, whisper's stacked layers);
+C may be absent or broadcast over the batch.
 
 Bound on this card: fp32 FMA throughput (67 TFLOP/s, no TF32) for every
 product on the K-FAC path — ``2·M·N·K`` operations against at most
-``4·(MK + KN + 2MN)`` bytes.  The design answers it only with register
-blocking (4×4 outputs per thread, 64×64 tiles); tensor cores are later work.
+``4·(MK + KN + 2MN)`` bytes.  The launch plan
+(``kernels/gemm_plan.py::dense_plan`` over :data:`gemm_plan.MATMUL_TILES`)
+picks a 128×128 tile (8×8 register patches) where the output's tiles fill
+the card, else a 64×64 one (4×4), and where even those cannot fill it, a
+split of K whose partial sums a second pass adds in a fixed order.  B's
+rows are copied 16 bytes at a time where :func:`gemm_plan.dense_vec16`
+allows (the 128 tile takes no other B: :func:`gemm_plan.matmul_tiles`); A
+is staged as rows by 16-byte copies where :func:`gemm_plan.dense_rows16`
+allows (the 64 tile, K % 4 == 0), else k-major by 4-byte copies.
 """
 from __future__ import annotations
 
@@ -21,7 +30,7 @@ from typing import List, NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, gemm_plan
 
 
 def matmul_ref(a, b, c=None, *, alpha=1.0, beta=0.0):
@@ -92,14 +101,23 @@ def matmul(a, b, c=None, *, alpha=1.0, beta=0.0):
     ab = None
     if isinstance(alpha, torch.Tensor) or isinstance(beta, torch.Tensor):
         ab = _build.scalar_pair(alpha, beta, op.a.device)
+    batch = max(op.batch, 1)
+    plan = gemm_plan.dense_plan(batch, op.m, op.n, op.k,
+                                gemm_plan.sm_count(op.a.device.index or 0),
+                                gemm_plan.matmul_tiles(op))
+    ws = (torch.empty(plan.splits, batch * op.m * op.n, device=op.a.device,
+                      dtype=torch.float32) if plan.splits > 1 else None)
     status = _build.load().lib.repro_matmul_f32(
         op.a.data_ptr(), op.b.data_ptr(),
         op.epi[0].data_ptr() if use_c else None, op.out.data_ptr(),
-        max(op.batch, 1), op.m, op.n, op.k, op.strides[0], op.strides[1],
-        op.strides[2] if use_c else 0, op.m * op.n if op.batch else 0,
+        None if ws is None else ws.data_ptr(), batch, op.m, op.n, op.k,
+        op.strides[0], op.strides[1], op.strides[2] if use_c else 0,
+        op.m * op.n if op.batch else 0,
         None if ab is None else ab.data_ptr(),
         0.0 if ab is not None else float(alpha),
-        0.0 if ab is not None else float(beta), _build.stream_of(op.a))
+        0.0 if ab is not None else float(beta), plan.tile, plan.chunk,
+        plan.splits, int(gemm_plan.dense_vec16(op)),
+        int(gemm_plan.dense_rows16(op, plan.tile)), _build.stream_of(op.a))
     _build.check(status, "matmul")
     matmul.launches += 1
     return op.out

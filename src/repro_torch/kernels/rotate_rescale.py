@@ -12,7 +12,9 @@ epilogue, so the rotated gradient is divided while it is still in
 registers.  The launch plan (``kernels/gemm_plan.py::dense_plan``) picks,
 where the output's tiles cannot fill the card, a split of K whose partial
 sums a second pass adds in a fixed order and divides; B's rows are copied
-16 bytes at a time when its width and address allow it.  λ comes by
+16 bytes at a time when its width and address allow it, and A is staged
+as rows by 16-byte copies where K % 4 == 0 (:func:`gemm_plan.dense_rows16`),
+else k-major by 4-byte copies.  λ comes by
 value or, as a 0-d tensor, by device pointer (no host read).
 ``rotate_rescale`` is four launches, in the TPU kernel's order:
 ``matmul(Q_Aᵀ, V)``, ``matmul_rescale(·, Q_G, S, λ)``, ``matmul(Q_A, ·)``,
@@ -38,15 +40,6 @@ def matmul_rescale_ref(a, b, s, lam=0.0):
     return (a.float() @ b.float()) / (s.float() + lam)
 
 
-def vec16(op) -> bool:
-    """Whether B's rows can be copied 16 bytes at a time: its width and
-    batch stride are multiples of 4 floats and it starts on a 16-byte
-    boundary.  A is always staged by 4-byte copies (each to its transposed
-    place), so its layout never matters."""
-    return (op.n % 4 == 0 and op.strides[1] % 4 == 0
-            and gemm_plan.aligned16(op.b))
-
-
 def matmul_rescale(a, b, s, lam=0.0):
     """``(a @ b) / (s + lam)``; a: ([B,] M, K); b: ([B,] K, N);
     s: ([B,] M, N).  ``lam`` is a Python number or a 0-d tensor.  CPU
@@ -69,7 +62,8 @@ def matmul_rescale(a, b, s, lam=0.0):
         op.m, op.n, op.k, *op.strides, op.m * op.n if op.batch else 0,
         None if lam_dev is None else lam_dev.data_ptr(),
         0.0 if lam_dev is not None else float(lam), plan.chunk, plan.splits,
-        int(vec16(op)), _build.stream_of(op.a))
+        int(gemm_plan.dense_vec16(op)),
+        int(gemm_plan.dense_rows16(op, plan.tile)), _build.stream_of(op.a))
     _build.check(status, "matmul_rescale")
     matmul_rescale.launches += 1
     return op.out

@@ -30,7 +30,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels.factor_update import factor_update, factor_update_ref
 from repro_torch.kernels.gemm_plan import sm_count
-from repro_torch.kernels.matmul import matmul, matmul_ref
+from repro_torch.kernels.matmul import matmul, matmul_ref, operands
 from repro_torch.kernels.ns_step import (ns_inverse, ns_inverse_ref, ns_step,
                                          ns_step_ref)
 from repro_torch.kernels.precond import precondition, precondition_ref
@@ -231,6 +231,97 @@ def test_matmul_transposed_views_on_card():
     _close(matmul(b.transpose(1, 2), b), matmul_ref(b.transpose(1, 2), b))
 
 
+# (batch, m, k, n) of matmul's forced plans: the ragged sides 31, 251, 785
+# and 1001 as M, K and N (4-byte copies of A and B), one K % 4 == 0 case
+# (A staged by 16-byte copies), and a batch of 3; the 128 tile copies B 16
+# bytes at a time only, so it takes the cases whose N % 4 == 0 and refuses
+# the others
+MM_CASES = [(1, 31, 251, 785), (1, 1001, 785, 31), (1, 251, 1001, 252),
+            (1, 785, 1000, 251), (3, 251, 65, 1000)]
+
+
+def _matmul_case(g, batch, m, k, n, c_mode):
+    lead = (batch,) if batch > 1 else ()
+    a = torch.randn(*lead, m, k, generator=g, device="cuda")
+    b = torch.randn(k, n, generator=g, device="cuda")
+    c = {"absent": None,
+         "present": torch.randn(*lead, m, n, generator=g, device="cuda"),
+         "broadcast": torch.randn(1, m, n, generator=g, device="cuda")
+         }[c_mode]
+    return a, b, c
+
+
+@pytest.mark.parametrize("c_mode", ["absent", "present", "broadcast"])
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("tile", [128, 64])
+def test_matmul_forced_plans_on_card(tile, splits, c_mode, monkeypatch):
+    """Each tile, K whole and split (a short last chunk), at ragged shapes,
+    with C absent, present and broadcast over the batch, alpha/beta by value
+    and on the device; one launch a call, split or not.  A 128 tile forced
+    on a B it cannot copy 16 bytes at a time raises."""
+    from repro_torch.kernels import gemm_plan
+    g = _card()
+    scalars = [(-0.7, 1.9), (torch.tensor(-0.7, device="cuda"),
+                            torch.tensor(1.9, device="cuda"))]
+    for batch, m, k, n in MM_CASES:
+        chunk, used = gemm_plan.chunks(k, splits)
+        assert used == splits
+        tiles = -(-m // tile) * -(-n // tile)
+        plan = gemm_plan.Plan(tile, tiles, batch * tiles, chunk, used)
+        monkeypatch.setattr(gemm_plan, "dense_plan", lambda *_, p=plan: p)
+        a, b, c = _matmul_case(g, batch, m, k, n, c_mode)
+        if tile not in gemm_plan.matmul_tiles(operands("matmul", a, b)):
+            with pytest.raises(RuntimeError):
+                matmul(a, b, c)
+            continue
+        for al, be in scalars:
+            before = matmul.launches
+            got = matmul(a, b, c, alpha=al, beta=be)
+            assert matmul.launches == before + 1
+            _close(got, matmul_ref(a, b, c, alpha=al, beta=be))
+
+
+@pytest.mark.parametrize("tile", [128, 64])
+def test_matmul_split_and_staging_bitwise_on_card(tile, monkeypatch):
+    """A split K gives the same bits on a second call (the partials are
+    added in a fixed order), and on the 64 tile A staged as rows by 16-byte
+    copies gives the bits of A staged k-major (the same FMA chains)."""
+    from repro_torch.kernels import gemm_plan
+    g = _card()
+    batch, m, k, n = 3, 251, 1000, 132
+    tiles = -(-m // tile) * -(-n // tile)
+    a, b, c = _matmul_case(g, batch, m, k, n, "broadcast")
+    assert gemm_plan.dense_rows16(operands("matmul", a, b), tile) is (
+        tile == 64)
+    keep = gemm_plan.dense_rows16
+    for splits in (1, 4):
+        chunk, used = gemm_plan.chunks(k, splits)
+        plan = gemm_plan.Plan(tile, tiles, batch * tiles, chunk, used)
+        monkeypatch.setattr(gemm_plan, "dense_plan", lambda *_, p=plan: p)
+        monkeypatch.setattr(gemm_plan, "dense_rows16", keep)
+        got = matmul(a, b, c, alpha=0.3, beta=-1.0)
+        assert torch.equal(got, matmul(a, b, c, alpha=0.3, beta=-1.0))
+        _close(got, matmul_ref(a, b, c, alpha=0.3, beta=-1.0))
+        monkeypatch.setattr(gemm_plan, "dense_rows16", lambda op, t: False)
+        assert torch.equal(got, matmul(a, b, c, alpha=0.3, beta=-1.0))
+
+
+def test_matmul_whisper_stacked_ns_step_on_card():
+    """whisper-small's stacked (12, 3072, 3072) Newton–Schulz step, both of
+    its products on the 128 tile by the planner's own pick."""
+    from repro_torch.kernels import gemm_plan
+    g = _card()
+    s, d = 12, 3072
+    plan = gemm_plan.dense_plan(s, d, d, d, sm_count(0),
+                                gemm_plan.MATMUL_TILES)
+    assert (plan.tile, plan.splits) == (128, 1)
+    m = torch.stack([_spd(g, d, 1024) for _ in range(2)]).repeat(6, 1, 1)
+    x = (torch.eye(d, device="cuda") / m.abs().sum(-1).amax(-1)[:, None, None]
+         + 1e-4 * torch.randn(s, d, d, generator=g, device="cuda"))
+    _close(matmul(m, x), matmul_ref(m, x))
+    _close(ns_step(m, x), ns_step_ref(m, x))
+
+
 def _eig_operands(g, a, gd):
     qa = torch.linalg.eigh(_spd(g, a))[1]
     qg = torch.linalg.eigh(_spd(g, gd))[1]
@@ -294,6 +385,28 @@ def test_matmul_rescale_plans_on_card(case):
         got = matmul_rescale(t, b, s, lam)
         assert matmul_rescale.launches == before + 1
         _close(got, matmul_rescale_ref(t, b, s, lam))
+
+
+@pytest.mark.parametrize("k", [1000, 52])
+def test_matmul_rescale_staging_bitwise_on_card(k, monkeypatch):
+    """A staged as rows by 16-byte copies (K % 4 == 0) gives the bits of A
+    staged k-major, K whole and split."""
+    from repro_torch.kernels import gemm_plan
+    g = _card()
+    t = torch.randn(3, 131, k, generator=g, device="cuda")
+    q = torch.randn(k, 68, generator=g, device="cuda")
+    s = torch.rand(3, 131, 68, generator=g, device="cuda") + 0.05
+    assert gemm_plan.dense_rows16(operands("matmul_rescale", t, q, s), 64)
+    rows16 = gemm_plan.dense_rows16
+    for splits in (1, 3):
+        chunk, used = gemm_plan.chunks(k, splits)
+        plan = gemm_plan.Plan(64, 6, 18, chunk, used)
+        monkeypatch.setattr(gemm_plan, "dense_plan", lambda *_, p=plan: p)
+        monkeypatch.setattr(gemm_plan, "dense_rows16", rows16)
+        got = matmul_rescale(t, q, s, 0.1)
+        _close(got, matmul_rescale_ref(t, q, s, 0.1))
+        monkeypatch.setattr(gemm_plan, "dense_rows16", lambda op, tile: False)
+        assert torch.equal(got, matmul_rescale(t, q, s, 0.1))
 
 
 @pytest.mark.parametrize("a,gd", LAYERS)

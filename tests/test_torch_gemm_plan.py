@@ -1,11 +1,12 @@
 """The host-side launch plans of the pipelined fp32 GEMM
-(``repro_torch/kernels/gemm_plan.py``) that ``matmul_rescale``,
+(``repro_torch/kernels/gemm_plan.py``) that ``matmul``, ``matmul_rescale``,
 ``patch_factor`` and ``factor_update`` hand to their CUDA kernels, checked
 on the CPU: the tiles
 cover the output (one triangle of tiles for the symmetric product), the K
 chunks are whole slices and sum every row once, the plan is the cost
-model's cheapest, and the 16-byte copies are chosen only where the strides
-and the address allow them.  Whether the kernels walk a plan's grid as
+model's cheapest, ``matmul`` weighs its two tiles and ``matmul_rescale``
+its one, and the 16-byte copies are chosen only where the strides and the
+address allow them.  Whether the kernels walk a plan's grid as
 planned is the card tests' to show (``tests/test_torch_cuda.py``).
 """
 import pytest
@@ -16,7 +17,6 @@ from repro_torch.kernels.factor_update import vec16 as factor_vec16
 from repro_torch.kernels.matmul import Operands
 from repro_torch.kernels.patch_factor import patch_geometry
 from repro_torch.kernels.patch_factor import vec16 as patch_vec16
-from repro_torch.kernels.rotate_rescale import vec16 as dense_vec16
 
 SMS = 132   # an H100's SMs
 
@@ -92,6 +92,76 @@ def test_dense_plan_splits_where_tiles_cannot_fill_the_card():
     assert gemm_plan.dense_plan(1, 1001, 784, 784, SMS).splits == 1
 
 
+# (batch, m, n, k) of matmul: the autoencoder's Newton–Schulz products
+# (d, d) @ (d, d) at its 16 factor sides and the gamma sweep's batch of 3,
+# its precondition products (a, a) @ (a, g) and (a, g) @ (g, g), whisper's
+# stacked NS products, and ragged ones
+AE_NS = [(b, d, d, d) for d in sorted(set(AE_SIDES)) for b in (1, 3)]
+AE_LAYERS = [(785, 1000), (1001, 500), (501, 250), (251, 30), (31, 250),
+             (251, 500), (501, 1000), (1001, 784)]
+AE_PRECOND = ([(1, a, g, a) for a, g in AE_LAYERS]
+              + [(1, a, g, g) for a, g in AE_LAYERS])
+WHISPER_NS = [(12, 3072, 3072, 3072), (12, 768, 768, 768)]
+MATMUL = AE_NS + AE_PRECOND + WHISPER_NS + DENSE
+
+
+@pytest.mark.parametrize("batch,m,n,k", MATMUL)
+def test_matmul_plan_covers_output_and_k(batch, m, n, k):
+    """matmul's plan: one of its kernel's tiles over (m, n), every batch's
+    tiles launched once per K chunk, the chunks summing every row of K
+    once."""
+    plan = gemm_plan.dense_plan(batch, m, n, k, SMS, gemm_plan.MATMUL_TILES)
+    assert plan.tile in gemm_plan.MATMUL_TILES and not plan.fold
+    rows, cols = -(-m // plan.tile), -(-n // plan.tile)
+    assert plan.tiles == rows * cols and plan.blocks == batch * plan.tiles
+    assert (rows - 1) * plan.tile < m <= rows * plan.tile
+    assert (cols - 1) * plan.tile < n <= cols * plan.tile
+    _chunks_cover(plan, k)
+
+
+@pytest.mark.parametrize("batch,m,n,k", MATMUL)
+def test_matmul_plan_takes_the_cheapest_modelled_plan(batch, m, n, k):
+    """No tile of matmul's and no split the planner weighs is cheaper by its
+    model; of equal costs the earlier tile and the smaller split win."""
+    plan = gemm_plan.dense_plan(batch, m, n, k, SMS, gemm_plan.MATMUL_TILES)
+    best = gemm_plan.cost(plan.tile, plan.blocks, plan.chunk, plan.splits,
+                          SMS, batch * m * n)
+    options = gemm_plan.dense_options(batch, m, n, gemm_plan.MATMUL_TILES)
+    assert [o[0] for o in options] == list(gemm_plan.MATMUL_TILES)
+    for tile, tiles, blocks, _ in options:
+        for s in range(1, gemm_plan.max_splits(k) + 1):
+            chunk, used = gemm_plan.chunks(k, s)
+            t = gemm_plan.cost(tile, blocks, chunk, used, SMS, batch * m * n)
+            assert best <= t
+            if t == best and tile == plan.tile:
+                assert plan.splits <= used
+
+
+@pytest.mark.parametrize("batch,m,n,k,tile", [
+    (12, 3072, 3072, 3072, 128), (3, 1001, 1001, 1001, 64)])
+def test_matmul_plan_tile_at_whisper_and_the_gamma_sweep(batch, m, n, k,
+                                                         tile):
+    """whisper's stacked (12, 3072, 3072) NS products (6912 blocks of 128)
+    take the 128 tile whole; the gamma sweep's (3, 1001, 1001) (192 tiles
+    of 128 against the card's 264 two-block slots) the 64 tile."""
+    plan = gemm_plan.dense_plan(batch, m, n, k, SMS, gemm_plan.MATMUL_TILES)
+    assert (plan.tile, plan.splits) == (tile, 1)
+    if tile == 128:
+        assert plan.blocks == 6912
+
+
+def test_matmul_rescale_plans_unchanged():
+    """matmul_rescale keeps its one 64 tile: its picks at the autoencoder's
+    8 eigen-path products (a, g) @ (g, g) are the ones it launched before
+    matmul's kernel learnt the 128 tile."""
+    want = [(64, 208, 1008, 1), (64, 128, 512, 1), (64, 32, 64, 4),
+            (64, 4, 32, 1), (64, 4, 48, 6), (64, 32, 64, 8),
+            (64, 128, 512, 2), (64, 208, 784, 1)]
+    got = [gemm_plan.dense_plan(1, a, g, g, SMS) for a, g in AE_LAYERS]
+    assert [(p.tile, p.blocks, p.chunk, p.splits) for p in got] == want
+    assert gemm_plan.dense_options(1, 785, 1000) == [(64, 208, 208, False)]
+
+
 @pytest.mark.parametrize("case", PATCH)
 def test_triangle_plan_covers_the_symmetric_output(case):
     b, t, c, taps, stride, padding, bias = case
@@ -122,9 +192,9 @@ def test_triangle_plan_at_whisper_small_stems():
     assert conv1.blocks * conv1.splits >= SMS // 2
 
 
-def _op(b, n, sb):
-    a = torch.zeros(2, 2)
-    return Operands(a, b, [a], 0, 2, n, 2, [0, sb, 0], a)
+def _op(b, n, sb, a=None, sa=0):
+    a = torch.zeros(2, 2) if a is None else a
+    return Operands(a, b, [a], 0, 2, n, a.shape[-1], [sa, sb, 0], a)
 
 
 @pytest.mark.parametrize("n,offset,sb,want", [
@@ -137,7 +207,35 @@ def test_dense_copy_width(n, offset, sb, want):
     base = torch.zeros(8 + 4 * n)
     assert base.data_ptr() % 16 == 0
     b = base[offset:offset + 4 * n].view(4, n)
-    assert dense_vec16(_op(b, n, sb)) is want
+    assert gemm_plan.dense_vec16(_op(b, n, sb)) is want
+
+
+@pytest.mark.parametrize("k,offset,sa,want", [
+    (1000, 0, 0, True), (3072, 0, 3072 * 3072, True), (768, 0, 0, True),
+    (1001, 0, 0, False), (785, 0, 0, False), (31, 0, 0, False),
+    (1000, 1, 0, False), (1000, 2, 0, False), (1000, 4, 0, True),
+    (1000, 0, 6, False)])
+def test_dense_rows_copy_width(k, offset, sa, want):
+    """A staged as rows by 16-byte copies only on the 64 tile, for a K and
+    a batch stride that are multiples of 4 floats and a 16-byte aligned
+    start; ragged K, and the 128 tile, keep the k-major 4-byte copies."""
+    base = torch.zeros(8 + 2 * k)
+    assert base.data_ptr() % 16 == 0
+    a = base[offset:offset + 2 * k].view(2, k)
+    op = _op(torch.zeros(k, 4), 4, 0, a, sa)
+    assert gemm_plan.dense_rows16(op, 64) is want
+    assert gemm_plan.dense_rows16(op, 128) is False
+
+
+@pytest.mark.parametrize("n,offset,tiles", [
+    (3072, 0, (128, 64)), (1000, 0, (128, 64)), (1001, 0, (64,)),
+    (30, 0, (64,)), (1000, 1, (64,))])
+def test_matmul_tiles_need_16_byte_copies_of_b_at_128(n, offset, tiles):
+    """matmul offers its 128 tile only where B's rows are copied 16 bytes
+    at a time; else the 64 tile, whose 4-byte loader fits its registers."""
+    base = torch.zeros(8 + 4 * n)
+    b = base[offset:offset + 4 * n].view(4, n)
+    assert gemm_plan.matmul_tiles(_op(b, n, 0)) == tiles
 
 
 @pytest.mark.parametrize("c,offset,want", [

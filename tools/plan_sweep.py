@@ -9,18 +9,27 @@ from the repository root.  At the autoencoder's 8 eigen-path products
 (``matmul_rescale``: the 64 tile, K whole or split), at whisper-small's
 two conv stems (``patch_factor``: the 128 and the 64 tile, the rows whole or
 split), at the autoencoder's factor sides (``factor_update``, X of 8192
-rows: each tile, the rows whole or split) and at whisper-small's three
-stacked factor shapes (``factor_update`` batched: each tile, no split), each
-plan the planner weighs is forced on the wrapper in turn and
-timed as ``chip_smoke.py`` times kernels: device time (a CUDA graph of the
-call replayed between CUDA events) and, in brackets, eager (CUDA events
-around back-to-back calls, where the host's cost of a split shows: its
-workspace and its second launch).  In parentheses the model's time; ``*``
-marks the plan the planner takes.  Last, the 8 products as the eigen path
-calls them and the 16 factor sides as a step calls them, under the
-planner's plans and with K whole.  The model's
-weights (``gemm_plan._SM_FLOPS``, ``_FILL``, ``_SPLIT_S``) are fitted to
-these tables.
+rows: each tile, the rows whole or split), at whisper-small's three
+stacked factor shapes (``factor_update`` batched: each tile, no split) and
+at ``matmul``'s three sets of shapes (each tile, K whole or split): the
+gamma sweep's (3, 1001, 1001)², the autoencoder's Newton–Schulz products
+(d, d)² at its factor sides and its precondition products (a, g) @ (g, g)
+and (a, a) @ (a, g), and whisper-small's stacked (12, 768, 768)² and
+(12, 3072, 3072)², each plan the planner weighs is forced on the wrapper in
+turn and timed as ``chip_smoke.py`` times kernels: device time (a CUDA
+graph of the call replayed between CUDA events) and, in brackets, eager
+(CUDA events around back-to-back calls, where the host's cost of a split
+shows: its workspace and its second launch).  In parentheses the model's
+time; ``*`` marks the plan the planner takes.  Then ``matmul``'s two ways
+of staging A on the 64 tile, at every shape of those sets where the
+planner's plan stages A as rows (``gemm_plan.dense_rows16``: the 64 tile,
+K % 4 == 0): as rows by 16-byte copies and k-major by 4-byte copies, in
+turns.  Last, the 8 products as the eigen
+path calls them (under the planner's plans, with K whole, and with A
+staged k-major throughout) and the 16 factor sides as a step calls them
+(under the planner's plans and with K whole).  The model's weights
+(``gemm_plan._SM_FLOPS``, ``_FILL``, ``_SPLIT_S``) are fitted to these
+tables.
 """
 from __future__ import annotations
 
@@ -61,6 +70,53 @@ def table(label, name, pick, options, k, out_floats, call, sms,
     print(f"  {label} pick {pick.tile}/{pick.splits}:")
     for i in range(0, len(cells), 4):
         print("     " + ", ".join(cells[i:i + 4]))
+
+
+def matmul_tables(dev, g, sms) -> None:
+    """matmul's forced plans at its three sets of shapes, then its two ways
+    of staging A under the planner's plans."""
+    from repro_torch.configs.autoencoder import CONFIG
+    from repro_torch.kernels import gemm_plan
+    from repro_torch.kernels.matmul import matmul, operands
+    from repro_torch.models.mlp import autoencoder_dims
+
+    dims = autoencoder_dims(CONFIG)
+    layers = [(dims[i] + 1, dims[i + 1]) for i in range(len(dims) - 1)]
+    sides = sorted({d for ag in layers for d in ag})
+    shapes = ([("row 1", 3, 1001, 1001, 1001)]
+              + [("NS", 1, d, d, d) for d in sides]
+              + [("precondition", 1, a, gd, k) for a, gd in layers
+                 for k in (gd, a)]
+              + [("whisper NS", 12, d, d, d) for d in (768, 3072)])
+    staged = []
+    for label, batch, m, n, k in shapes:
+        lead = (batch,) if batch > 1 else ()
+        a = torch.randn(*lead, m, k, generator=g, device=dev)
+        b = torch.randn(*lead, k, n, generator=g, device=dev)
+        call = lambda a=a, b=b: matmul(a, b)
+        op = operands("matmul", a, b)
+        tiles = gemm_plan.matmul_tiles(op)
+        table(f"matmul {label} {batch}x({m},{k})@({k},{n})", "dense_plan",
+              gemm_plan.dense_plan(batch, m, n, k, sms, tiles),
+              gemm_plan.dense_options(batch, m, n, tiles), k, batch * m * n,
+              call, sms)
+        if gemm_plan.dense_rows16(op, gemm_plan.dense_plan(
+                batch, m, n, k, sms, tiles).tile):
+            times = {True: [], False: []}
+            for rows in (True, False, False, True):
+                with chip_smoke.forced(
+                        "dense_rows16",
+                        lambda op, tile, rows=rows: rows and tile == 64):
+                    times[rows].append(chip_smoke.graph_ms(call))
+            staged.append((label, batch, m, n, k, times))
+        del a, b
+    print("  matmul's A staging on the 64 tile under the planner's plans, "
+          "device ms in turns: rows by 16-byte copies / k-major by 4-byte "
+          "copies")
+    for label, batch, m, n, k, times in staged:
+        print(f"     {label} {batch}x({m},{k})@({k},{n}): rows "
+              f"{times[True][0]:.4f}, {times[True][1]:.4f} / k-major "
+              f"{times[False][0]:.4f}, {times[False][1]:.4f}")
 
 
 def main() -> None:
@@ -134,6 +190,8 @@ def main() -> None:
               sms, top=1)
         del x, c
 
+    matmul_tables(dev, g, sms)
+
     def whole(batch, m, n, k, sms_):
         tile, tiles, blocks, fold = gemm_plan.dense_options(batch, m, n)[0]
         return gemm_plan.Plan(tile, tiles, blocks, *gemm_plan.chunks(k, 1),
@@ -143,9 +201,12 @@ def main() -> None:
     picked = (chip_smoke.graph_ms(run), chip_smoke.eager_ms(run, reps=20))
     with chip_smoke.forced("dense_plan", whole):
         unsplit = (chip_smoke.graph_ms(run), chip_smoke.eager_ms(run, reps=20))
+    with chip_smoke.forced("dense_rows16", lambda op, tile: False):
+        kmajor = (chip_smoke.graph_ms(run), chip_smoke.eager_ms(run, reps=20))
     print(f"  the 8 products of an eigen step: planner's plans "
           f"{picked[0]:.4f} [{picked[1]:.4f}] ms, K whole {unsplit[0]:.4f} "
-          f"[{unsplit[1]:.4f}] ms")
+          f"[{unsplit[1]:.4f}] ms, A k-major throughout {kmajor[0]:.4f} "
+          f"[{kmajor[1]:.4f}] ms")
 
     def rows_whole(d, core, has_bias, rows, sms_, batch=1):
         tile, tiles, blocks, fold = gemm_plan.triangle_options(
