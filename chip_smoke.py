@@ -67,7 +67,12 @@ on failure (nothing is caught):
             3072), timed beside bmm + baddbmm; each timed unit's matmul
             plans are printed, and its registers and spills at both tiles
             from the build log (over 128 or a spill fails the phase).
-            These, matmul_rescale, patch_factor and factor_update print
+            axpy_momentum (the main loop's 64 tile, K whole) at the 8
+            layers, alpha and mu on the device; its launches (copy widths)
+            and the chain's plans (matmul, then axpy) are printed, and the
+            registers and spills of its 4 main-loop instantiations (over
+            128 or a spill fails the phase).  These, matmul_rescale, the
+            update chain, patch_factor and factor_update print
             their share of the bound and achieved TFLOP/s
             (``tools/plan_sweep.py`` times the launch plans their planner
             weighs; it is not a phase of this script).
@@ -896,6 +901,14 @@ def ptxas_resources(log: str, kernel: str) -> list:
             out[-1][1] = int(re.search(r"Used (\d+) registers",
                                        line).group(1))
     return [tuple(r) for r in out]
+
+
+def ax_plan(m: int, n: int, k: int) -> str:
+    """axpy_momentum's launch for (m, k) @ (k, n), row-major and aligned:
+    the 64 tile, K whole, and the copy widths of gemm_plan.dense_vec16 /
+    dense_rows16, as "m x n x k: 64/1, B 16|4 B, A rows|k-major"."""
+    return (f"{m}x{n}x{k}: 64/1, B {16 if n % 4 == 0 else 4} B, "
+            f"A {'rows' if k % 4 == 0 else 'k-major'}")
 
 
 def mm_plan(batch: int, m: int, n: int, k: int) -> str:
@@ -1806,7 +1819,16 @@ def main() -> None:
                        4.0 * sum(3 * a * gd + gd * gd for a, gd in layers)))
 
     # precond_momentum / axpy_momentum: the 8 layers, alpha/mu on the
-    # device; D normwise, ΣD² to relative 1e-4
+    # device; D normwise, ΣD² to relative 1e-4.  axpy_momentum_kernel's
+    # 4 instantiations (VEC x A_ROWS) from the build log
+    resources = ptxas_resources(lib.log, "axpy_momentum_kernel")
+    for args, regs, st, ld in resources:
+        print(f"  update_chain {args}: {regs} registers, spill stores {st} "
+              f"B, loads {ld} B")
+    if ((lib.log and len(resources) != 4)
+            or any(st or ld or regs > 128 for _, regs, st, ld in resources)):
+        raise AssertionError(f"axpy_momentum: an instantiation missing, "
+                             f"over 128 registers or spilling: {resources}")
     errs, errs_ax = [], []
     al, mu = torch.tensor(-0.02, device=dev), torch.tensor(0.9, device=dev)
     cops = [(spd(a, 512), randn(a, gd), spd(gd, 512), randn(a, gd))
@@ -1838,6 +1860,9 @@ def main() -> None:
             torch.sum(d * d)
 
     rows["precond_momentum"] = dict(
+        # matmul's T = V G^-1, then axpy_momentum's, of each layer
+        plans=[p for a, gd in layers
+               for p in (mm_plan(1, a, gd, gd), "axpy " + ax_plan(a, gd, a))],
         source="src/repro_torch/kernels/update_chain.py",
         replaces="src/repro/kernels/update_chain.py:99",
         unit="all 8 layers of one step (two launches each)",
@@ -1858,9 +1883,13 @@ def main() -> None:
             torch.sum(d * d)
 
     rows["axpy_momentum"] = dict(
+        plans=[ax_plan(a, gd, a) for a, gd in layers], registers=resources,
+        # the pipelined main loop's 64 tile (gemm_pipeline.cuh), K whole,
+        # the ΣD² epilogue summed in a fixed order
         source="src/repro_torch/csrc/update_chain.cu",
         replaces="src/repro/kernels/update_chain.py:53",
-        unit="the 8 second halves alpha (A^-1 T) + mu M, ΣD² of one step",
+        unit="the 8 second halves alpha (A^-1 T) + mu M, ΣD² of one step "
+             "(gemm_pipeline.cuh's 64 tile, K whole)",
         max_abs_err=max(errs_ax),
         **timings(lambda: ax(axpy_momentum), lambda: ax(axpy_momentum_ref),
                   ax_library),
@@ -1905,13 +1934,18 @@ def main() -> None:
     for name in ("matmul", "precondition", "ns_step", "rotate_rescale"):
         print(f"  {name} matmul plans (batch x m x n x k: tile/splits): "
               f"{rows[name]['plans']}")
+    print(f"  axpy_momentum launches (m x n x k: tile/splits, copies): "
+          f"{rows['axpy_momentum']['plans']}")
+    print(f"  precond_momentum plans (matmul, then axpy): "
+          f"{rows['precond_momentum']['plans']}")
     for label, r in rows["ns_step"]["cases"].items():
         print(f"  ns_step {label} matmul plans: {r['plans']}")
     print(f"  patch_factor bound of the full (d, d) product: "
           f"{rows['patch_factor']['full_product_bound_ms']:.4f} ms")
     for name, r in [(name, rows[name]) for name in (
             "matmul", "precondition", "ns_step", "rotate_rescale",
-            "matmul_rescale", "patch_factor", "factor_update")] + [
+            "matmul_rescale", "axpy_momentum", "precond_momentum",
+            "patch_factor", "factor_update")] + [
             ("factor_update whisper-small", wu)] + [
             (f"ns_step {label}", r)
             for label, r in rows["ns_step"]["cases"].items()]:

@@ -1,5 +1,6 @@
-// Pipelined fp32 GEMM main loop for Hopper's CUDA cores, shared by
-// matmul (matmul.cu), matmul_rescale (rotate_rescale.cu), patch_factor
+// Pipelined fp32 GEMM main loop for Hopper's CUDA cores, shared by every
+// GEMM kernel of the package: matmul (matmul.cu), matmul_rescale
+// (rotate_rescale.cu), axpy_momentum (update_chain.cu), patch_factor
 // (patch_factor.cu) and factor_update (factor_update.cu):
 //
 //   acc[m][n] = sum_k A_tile[k][m] * B_tile[k][n]
@@ -31,9 +32,10 @@
 //   both tiles of X^T X from X as it lies.  A masked element is a cp.async
 //   with source size 0 (zero fill) from a clamped, valid address.
 // - The epilogue is a compile-time enum (store_tile): an epilogue passed
-//   as a functor cost the older tile 15% at 91 registers.  `mirror` also
+//   as a functor cost an older tile 15% at 91 registers.  `mirror` also
 //   writes entry (n, m) from acc[m][n], for symmetric products computed as
-//   one triangle of tiles.
+//   one triangle of tiles.  kAxpyNorm also returns the thread's sum of the
+//   squares it wrote, which block_sum adds over the block in a fixed order.
 //
 // A split of K over blocks, with the partial sums added in a second pass
 // in a fixed order (sum_partials.cuh), is the caller's: it picks the tile
@@ -275,23 +277,26 @@ struct DenseLoader {
 };
 
 enum Epilogue : int {
-  kStore,    // O = acc: a K split's partial sum
-  kAxpby,    // O = alpha * acc + beta * C
-  kScale,    // O = alpha * acc: no C
-  kRescale,  // O = acc / (C + alpha): the damped eigenbasis rescale
+  kStore,     // O = acc: a K split's partial sum
+  kAxpby,     // O = alpha * acc + beta * C
+  kScale,     // O = alpha * acc: no C
+  kRescale,   // O = acc / (C + alpha): the damped eigenbasis rescale
+  kAxpyNorm,  // O = alpha * acc + beta * C, and the sum of O^2 returned
 };
 
 // Writes the thread's patch of the tile at (row0, col0) into the (rows,
 // cols) output O with leading dimension ld; C has O's layout.  With
-// `mirror` (every epilogue but kRescale), entry (n, m) also gets acc[m][n],
-// with C's own (n, m) entry: a triangle of tiles of a symmetric product
-// fills the other.
+// `mirror` (kStore, kAxpby, kScale), entry (n, m) also gets acc[m][n], with
+// C's own (n, m) entry: a triangle of tiles of a symmetric product fills
+// the other.  Returns, for kAxpyNorm, the sum of the squares of the entries
+// the thread wrote, in the order it wrote them (0 for the others).
 template <int EPI, int BM, int BN>
-__device__ __forceinline__ void store_tile(
+__device__ __forceinline__ float store_tile(
     const float (&acc)[Tile<BM, BN>::kTM][Tile<BM, BN>::kTN],
     float* __restrict__ O, const float* __restrict__ C, int ld, int rows,
     int cols, int row0, int col0, float alpha, float beta, bool mirror) {
   using T = Tile<BM, BN>;
+  float sq = 0.f;
 #pragma unroll
   for (int i = 0; i < T::kTM; ++i) {
     const int m = row0 + T::row(i);
@@ -306,12 +311,16 @@ __device__ __forceinline__ void store_tile(
         O[o] = v / (C[o] + alpha);
       } else if constexpr (EPI == kAxpby) {
         O[o] = fmaf(beta, C[o], alpha * v);
+      } else if constexpr (EPI == kAxpyNorm) {
+        const float d = fmaf(beta, C[o], alpha * v);
+        O[o] = d;
+        sq = fmaf(d, d, sq);
       } else if constexpr (EPI == kScale) {
         O[o] = alpha * v;
       } else {
         O[o] = v;
       }
-      if constexpr (EPI != kRescale) {
+      if constexpr (EPI != kRescale && EPI != kAxpyNorm) {
         if (mirror) {
           const long long t = static_cast<long long>(n) * ld + m;
           O[t] = EPI == kAxpby  ? fmaf(beta, C[t], alpha * v)
@@ -321,6 +330,26 @@ __device__ __forceinline__ void store_tile(
       }
     }
   }
+  return sq;
+}
+
+// The sum of v over the block's kThreads threads in a fixed order: a
+// warp-shuffle tree, then the warp sums in warp order.  Thread 0 gets it
+// (the others get 0).  No atomics, so the sum is the same on every run.
+// Every thread of the block calls it.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_sums[kThreads / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float total = 0.f;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
+  }
+  return total;
 }
 
 // Raise a kernel's dynamic shared memory limit (needed above 48 KB);

@@ -9,9 +9,9 @@ The kernels take the plan as it is; the choices live here, in Python, where
 the CPU tests reach them.  Dense products weigh the tile edges their kernel
 has: ``matmul`` the 128 and the 64 tile (:data:`MATMUL_TILES`; the 128 tile
 pays off on whisper's stacked 3072-wide Newton–Schulz products),
-``matmul_rescale`` the 64 tile only (:data:`DENSE_TILE`).  Symmetric
-products (``patch_factor``, ``factor_update``) weigh the 128 and the 64
-tile.
+``matmul_rescale`` the 64 tile only (:data:`DENSE_TILE`, which
+``axpy_momentum`` also runs, with K whole and no plan).  Symmetric products
+(``patch_factor``, ``factor_update``) weigh the 128 and the 64 tile.
 
 The choice follows a small cost model: the busiest SM runs
 ``ceil(blocks / SMs)`` blocks, each of ``2·T²·chunk`` operations, at the
@@ -34,7 +34,7 @@ import torch
 
 BK = 16                         # K rows per slice (gemm_pipeline.cuh kBK)
 TILES = (128, 64)               # symmetric products' tile edges, preferred
-DENSE_TILE = 64                 # matmul_rescale's tile edge
+DENSE_TILE = 64                 # matmul_rescale's, axpy_momentum's tile
 MATMUL_TILES = (128, 64)        # matmul's tile edges, preferred
 _SM_FLOPS = {128: 2.6e11, 64: 2.4e11}   # fp32 FMA rate of one busy SM
 _FILL = {128: 1.1, 64: 1.4}     # blocks an SM holds to reach that rate
@@ -172,9 +172,10 @@ def matmul_tiles(op) -> tuple:
 
 
 def dense_rows16(op, tile: int) -> bool:
-    """Whether the dense loader (``matmul``, ``matmul_rescale``) stages A
-    as rows by 16-byte copies: on the 64 tile (the rows' reads do not fit
-    the 128 tile's 128 registers), where K and A's batch stride are
+    """Whether the dense loader (``matmul``, ``matmul_rescale``,
+    ``axpy_momentum``) stages A as rows by 16-byte copies: on the 64 tile
+    (the rows' reads do not fit the 128 tile's 128 registers), where K and
+    A's batch stride are
     multiples of 4 floats and A starts on a 16-byte boundary.  Else A is
     staged k-major by 4-byte copies, each to its transposed place (ragged
     K: 1001, 785, 501, 251, 31)."""

@@ -5,26 +5,37 @@
 Replaces ``repro/kernels/update_chain.py::axpy_momentum`` (``pallas_call``
 at line 73) and ``precond_momentum`` (line 99).  ``precond_momentum`` is two
 launches: ``T = V Ḡ⁻¹`` through :func:`matmul`, then ``axpy_momentum``
-(``csrc/update_chain.cu``), whose epilogue forms ``α·(Ā⁻¹T) + μ·M`` in
-registers and sums D² over each 64×64 tile's valid entries into one float
-per tile, with no atomics.  The wrapper sums those partials on the device,
-so the global-norm and KL clips never re-read D.  α and μ are read from a
-2-float device buffer (no host read).  The TPU kernel's partials grid was
-``(M//128, N//128)``; this one follows the 64-tiles, so only the sum is
-comparable.
+(``csrc/update_chain.cu``): the pipelined fp32 main loop of
+``csrc/gemm_pipeline.cuh`` on 64×64 tiles (4×4 register patches, a
+``cp.async`` ring of K slices), whose epilogue forms ``α·(Ā⁻¹T) + μ·M`` in
+registers and sums D² over each tile's valid entries into one float per
+tile (:func:`partials_grid`), in a fixed order, with no atomics.  The
+wrapper sums those partials on the device, so the global-norm and KL clips
+never re-read D.  K stays whole (a split of it lost at the autoencoder's 8
+layers); B's rows are copied 16 bytes at a time and A staged as rows where
+:func:`gemm_plan.dense_vec16` and :func:`gemm_plan.dense_rows16` allow.  α
+and μ are read from a 2-float device buffer (no host read).  The TPU kernel's
+partials grid was ``(M//128, N//128)``; this one follows the 64-tiles, so
+only the sum is comparable.
 
-Bound on this card: fp32 FMA throughput, ``2·a·g·(a + g)`` operations for an
-(a, g) weight — 9.0 GFLOP (0.134 ms at 67 TFLOP/s) for the 8 layers of the
-full-width autoencoder.
+Bound on this card: fp32 FMA throughput, ``2·a²·g`` operations for
+``axpy_momentum`` on an (a, g) weight — 4.50 GFLOP (0.0673 ms at 67
+TFLOP/s) for the 8 layers of the full-width autoencoder — and
+``2·a·g·(a + g)`` for the chain, 9.0 GFLOP (0.134 ms).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, gemm_plan
 from repro_torch.kernels.matmul import matmul, operands
 
-_TILE = 64              # output tile edge of csrc/gemm_tile.cuh
+
+def partials_grid(m: int, n: int) -> tuple:
+    """The shape of ``axpy_momentum``'s ΣD² partials for an (m, n) D: one
+    float per output tile of :data:`gemm_plan.DENSE_TILE`."""
+    tile = gemm_plan.DENSE_TILE
+    return -(-m // tile), -(-n // tile)
 
 
 def axpy_momentum_ref(a_inv, t, mom, alpha, mu):
@@ -45,12 +56,14 @@ def axpy_momentum(a_inv, t, mom, alpha, mu):
         raise ValueError("axpy_momentum: operands must be 2-D")
     op = operands("axpy_momentum", a_inv, t, mom)
     am = _build.scalar_pair(alpha, mu, op.a.device)
-    partials = torch.empty(-(-op.m // _TILE), -(-op.n // _TILE),
-                           device=op.a.device, dtype=torch.float32)
+    partials = torch.empty(partials_grid(op.m, op.n), device=op.a.device,
+                           dtype=torch.float32)
     status = _build.load().lib.repro_axpy_momentum_f32(
         op.a.data_ptr(), op.b.data_ptr(), op.epi[0].data_ptr(),
         op.out.data_ptr(), partials.data_ptr(), op.m, op.n, op.k,
-        am.data_ptr(), _build.stream_of(op.a))
+        am.data_ptr(), int(gemm_plan.dense_vec16(op)),
+        int(gemm_plan.dense_rows16(op, gemm_plan.DENSE_TILE)),
+        _build.stream_of(op.a))
     _build.check(status, "axpy_momentum")
     axpy_momentum.launches += 1
     return op.out, partials.sum()

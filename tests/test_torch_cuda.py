@@ -435,6 +435,61 @@ def test_update_chain_on_card(a, gd):
                        sq)
 
 
+def _close_sq(got, want):
+    assert got.dim() == 0 and got.device.type == "cuda"
+    assert abs(got.item() - want.item()) <= 1e-4 * want.item(), (got, want)
+
+
+# (a, g): a_inv (a, a) @ T (a, g) with ragged a (A staged k-major) against
+# g = 30 and 250 (4-byte copies of T) and 1000 (16-byte copies)
+AXPY_CASES = [(a, gd) for a in (31, 251, 501, 1001) for gd in (30, 250, 1000)]
+
+
+@pytest.mark.parametrize("a,gd", AXPY_CASES)
+def test_axpy_momentum_ragged_on_card(a, gd):
+    """axpy_momentum against its plain version at ragged shapes, alpha and
+    mu on the device and as Python numbers, and mu = 0: D within TOL, ΣD²
+    within relative 1e-4, one launch a call, and two calls bitwise equal."""
+    from repro_torch.kernels import gemm_plan
+    g = _card()
+    ai = _spd(g, a)
+    t, mom = (torch.randn(a, gd, generator=g, device="cuda")
+              for _ in range(2))
+    op = operands("axpy_momentum", ai, t, mom)
+    assert gemm_plan.dense_vec16(op) is (gd % 4 == 0)
+    assert not gemm_plan.dense_rows16(op, gemm_plan.DENSE_TILE)
+    al, mu = torch.tensor(-0.02, device="cuda"), torch.tensor(0.9,
+                                                              device="cuda")
+    for alpha, m_ in ((al, mu), (-0.02, 0.9), (al, 0.0), (-0.05, 0.0)):
+        before = axpy_momentum.launches
+        d, sq = axpy_momentum(ai, t, mom, alpha, m_)
+        assert axpy_momentum.launches == before + 1
+        d_ref, sq_ref = axpy_momentum_ref(ai, t, mom, alpha, m_)
+        _close(d, d_ref)
+        _close_sq(sq, sq_ref)
+        d2, sq2 = axpy_momentum(ai, t, mom, alpha, m_)
+        assert torch.equal(d2, d) and torch.equal(sq2, sq)
+
+
+@pytest.mark.parametrize("k", [1000, 52])
+def test_axpy_momentum_staging_bitwise_on_card(k, monkeypatch):
+    """A staged as rows by 16-byte copies (K % 4 == 0) gives the bits of A
+    staged k-major, D and ΣD² alike."""
+    from repro_torch.kernels import gemm_plan
+    g = _card()
+    ai = torch.randn(131, k, generator=g, device="cuda")
+    t = torch.randn(k, 68, generator=g, device="cuda")
+    mom = torch.randn(131, 68, generator=g, device="cuda")
+    assert gemm_plan.dense_rows16(operands("axpy_momentum", ai, t, mom), 64)
+    d, sq = axpy_momentum(ai, t, mom, 0.3, 0.9)
+    d_ref, sq_ref = axpy_momentum_ref(ai, t, mom, 0.3, 0.9)
+    _close(d, d_ref)
+    _close_sq(sq, sq_ref)
+    monkeypatch.setattr(gemm_plan, "dense_rows16", lambda op, tile: False)
+    d2, sq2 = axpy_momentum(ai, t, mom, 0.3, 0.9)
+    assert torch.equal(d2, d) and torch.equal(sq2, sq)
+
+
 def test_new_wrappers_raise_on_bad_operands():
     """A non-f32 or mixed-device call raises; nothing falls back."""
     g = _card()

@@ -1,13 +1,14 @@
 """The host-side launch plans of the pipelined fp32 GEMM
 (``repro_torch/kernels/gemm_plan.py``) that ``matmul``, ``matmul_rescale``,
-``patch_factor`` and ``factor_update`` hand to their CUDA kernels, checked
-on the CPU: the tiles
+``axpy_momentum``, ``patch_factor`` and ``factor_update`` hand to their CUDA
+kernels, checked on the CPU: the tiles
 cover the output (one triangle of tiles for the symmetric product), the K
 chunks are whole slices and sum every row once, the plan is the cost
 model's cheapest, ``matmul`` weighs its two tiles and ``matmul_rescale``
-its one, and the 16-byte copies are chosen only where the strides and the
-address allow them.  Whether the kernels walk a plan's grid as
-planned is the card tests' to show (``tests/test_torch_cuda.py``).
+its one, ``axpy_momentum``'s ΣD² partials follow its 64 tiles, and the
+16-byte copies are chosen only where the strides and the address allow
+them.  Whether the kernels walk a plan's
+grid as planned is the card tests' to show (``tests/test_torch_cuda.py``).
 """
 import pytest
 import torch
@@ -17,6 +18,7 @@ from repro_torch.kernels.factor_update import vec16 as factor_vec16
 from repro_torch.kernels.matmul import Operands
 from repro_torch.kernels.patch_factor import patch_geometry
 from repro_torch.kernels.patch_factor import vec16 as patch_vec16
+from repro_torch.kernels.update_chain import partials_grid
 
 SMS = 132   # an H100's SMs
 
@@ -160,6 +162,31 @@ def test_matmul_rescale_plans_unchanged():
     got = [gemm_plan.dense_plan(1, a, g, g, SMS) for a, g in AE_LAYERS]
     assert [(p.tile, p.blocks, p.chunk, p.splits) for p in got] == want
     assert gemm_plan.dense_options(1, 785, 1000) == [(64, 208, 208, False)]
+
+
+# (m, n, k) of axpy_momentum, a_inv (m, k) @ T (k, n): the autoencoder's 8
+# layers (a, g) at K = a, then ragged and small ones
+AXPY = ([(a, g, a) for a, g in AE_LAYERS]
+        + [(31, 30, 31), (251, 1000, 251), (1001, 250, 1001), (77, 5, 3),
+           (64, 64, 64), (65, 129, 1000), (5, 7, 0)])
+
+
+@pytest.mark.parametrize("m,n,k", AXPY)
+def test_axpy_momentum_launch(m, n, k):
+    """What axpy_momentum's wrapper hands its kernel, row-major and aligned
+    operands: one block per 64×64 output tile, K whole, and ΣD² partials of
+    one float per tile, (ceil(m/64), ceil(n/64)), covering (m, n) with no
+    empty row or column of tiles; T's rows copied 16 bytes at a time
+    exactly where n % 4 == 0 (the autoencoder's g = 1000, 500, 784), a_inv
+    staged as rows exactly where k % 4 == 0 (never at its ragged K = a)."""
+    rows, cols = partials_grid(m, n)
+    assert gemm_plan.DENSE_TILE == 64
+    assert (rows - 1) * 64 < m <= rows * 64
+    assert (cols - 1) * 64 < n <= cols * 64
+    a, b = torch.zeros(m, k), torch.zeros(k, n)
+    op = Operands(a, b, [torch.zeros(m, n)], 0, m, n, k, [0, 0, 0], None)
+    assert gemm_plan.dense_vec16(op) is (n % 4 == 0)
+    assert gemm_plan.dense_rows16(op, gemm_plan.DENSE_TILE) is (k % 4 == 0)
 
 
 @pytest.mark.parametrize("case", PATCH)
