@@ -37,9 +37,12 @@ on failure (nothing is caught):
             one KV head at S 8192 (the most splits), with and without a
             window and a softcap, and the host's cost of a paged
             call with one split and with a split.  flash_attention is
-            held to 1e-5 * max|plain| on small ragged cases (G = 1..4, hd
-            16 / 64 / 256, causal or not, a window and a softcap, rows with
-            no valid key), then at the prefill's shapes, each timed:
+            held to 1e-5 * max|plain| on small ragged cases (G = 1..4, every
+            hd of HEAD_DIMS, lengths no 64-key tile divides, causal or not,
+            windows whose edge falls inside a key tile, a softcap, Tk < Tq
+            with rows with no valid key, Tk > Tq; a second call bitwise
+            equal), after its registers, spills (a spill fails) and blocks
+            an SM by head dim; then at the prefill's shapes, each timed:
             llama3.2-1b's 1024-token layer (beside SDPA), gemma2-2b's
             6000-token local and global layers.  Where a softcap is on
             (gemma2), the library call is ``flex_attention`` under
@@ -671,14 +674,19 @@ def attention_bound(b, hq, hkv, hd, tq, tk, causal=True, window=0) -> tuple:
                     4.0 * hd * (2 * b * hq * tq + 2 * b * hkv * tk))
 
 
-def attention_kernel_row(dev, g) -> dict:
+def attention_kernel_row(dev, g, log) -> dict:
     """flash_attention against its plain version, to 1e-5 of max|plain|,
     on q, k, v as the LM passes them ((B, T, H, hd) projections viewed as
-    (B, H, T, hd)).  First small cases: every group size G = 1..4 at hd 16,
-    64 and 256 and ragged lengths, causal or not, with a window and a
-    softcap, and Tk < Tq with a window (rows with no valid key).  Then the
-    prefill's shapes, each timed beside the plain version: llama3.2-1b's
-    1024-token layer (B 1, Hq 32, Hkv 8, hd 64, causal), beside
+    (B, H, T, hd)).  First its registers, spills (a spill fails) and blocks
+    an SM for each head dim, then small cases: every head dim of
+    HEAD_DIMS at every group size G = 1..4, lengths that no 64-key tile
+    divides, causal or not, a window and a softcap (windows of 9 and 16
+    whose edge falls inside a key tile, and of 70, which spans one), the
+    causal diagonal crossing key and query tiles; Tk < Tq with a window
+    (rows with no valid key) and Tk > Tq; and two calls on the same inputs,
+    bitwise equal.  Then the prefill's shapes, each timed beside the plain
+    version (and held bitwise on a second call): llama3.2-1b's 1024-token
+    layer (B 1, Hq 32, Hkv 8, hd 64, causal), beside
     ``scaled_dot_product_attention(is_causal, enable_gqa)``, which the port
     never calls; gemma2-2b's 6000-token local and global layers (Hq 8, Hkv
     4, hd 256, softcap 50, window 4096 or none), beside ``flex_softcap``
@@ -686,8 +694,21 @@ def attention_kernel_row(dev, g) -> dict:
     global layer."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     blocks_per_sm,
+                                                     flash_attention,
                                                      flash_attention_ref)
+    resources = ptxas_resources(log, "attention_kernel")
+    for args, regs, st, ld in resources:
+        print(f"  attention_kernel<{args}>: {regs} registers, spill stores "
+              f"{st} B, loads {ld} B")
+    if any(st or ld for _, _, st, ld in resources):
+        raise AssertionError(f"flash_attention spills: {resources}")
+    occupancy = {hd: blocks_per_sm(hd) for hd in HEAD_DIMS}
+    print(f"  attention_kernel blocks an SM by head dim: {occupancy}")
+    if not all(occupancy.values()):
+        raise AssertionError(f"flash_attention: an instantiation fits no "
+                             f"SM: {occupancy}")
     errs = []
 
     def case(b, hq, hkv, hd, tq, tk):
@@ -697,21 +718,38 @@ def attention_kernel_row(dev, g) -> dict:
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     def check(label, q, k, v, **kw):
-        compare(f"flash_attention {label}", flash_attention(q, k, v, **kw),
+        got = flash_attention(q, k, v, **kw)
+        compare(f"flash_attention {label}", got,
                 flash_attention_ref(q, k, v, **kw), errs, tol=ATTN_TOL)
+        return got
+
+    def repeat(label, got, q, k, v, **kw):
+        if not torch.equal(flash_attention(q, k, v, **kw), got):
+            raise AssertionError(f"flash_attention {label}: two calls on "
+                                 f"the same inputs differ")
 
     for group in range(1, 5):
-        for hd, t in ((16, 21), (64, 300), (256, 77)):
+        for hd, t in ((16, 21), (32, 130), (64, 300), (128, 200), (256, 77),
+                      (256, 333)):
             q, k, v = case(2, 2 * group, 2, hd, t, t)
             for causal, window, cap in ((True, 0, 0.0), (False, 0, 0.0),
                                         (True, 16, 0.0), (True, 16, 50.0),
-                                        (False, 9, 30.0)):
-                check(f"G={group} hd={hd} T={t} causal={causal} "
-                      f"window={window} cap={cap}", q, k, v, causal=causal,
-                      window=window, cap=cap)
+                                        (False, 9, 30.0), (True, 70, 50.0)):
+                kw = dict(causal=causal, window=window, cap=cap)
+                got = check(f"G={group} hd={hd} T={t} causal={causal} "
+                            f"window={window} cap={cap}", q, k, v, **kw)
+            repeat(f"G={group} hd={hd} T={t}", got, q, k, v, **kw)
         q, k, v = case(1, 2 * group, 2, 64, 60, 20)
         check(f"G={group} Tq=60 Tk=20 window=8 (rows >= 27: no key)", q, k,
               v, causal=True, window=8, cap=30.0)
+        hd = HEAD_DIMS[group]
+        q, k, v = case(1, 2 * group, 2, hd, 150, 70)
+        check(f"G={group} hd={hd} Tq=150 Tk=70 window=30 (rows >= 99: no "
+              f"key)", q, k, v, causal=True, window=30, cap=0.0)
+        q, k, v = case(2, 2 * group, 2, hd, 45, 130)
+        for causal in (True, False):
+            check(f"G={group} hd={hd} Tq=45 Tk=130 causal={causal}", q, k, v,
+                  causal=causal, window=0, cap=20.0)
 
     shapes = {"llama3.2-1b": (1, 32, 8, 64, 1024, dict(causal=True)),
               "gemma2-2b local": (1, 8, 4, 256, 6000,
@@ -721,8 +759,10 @@ def attention_kernel_row(dev, g) -> dict:
     cases = {}
     for label, (b, hq, hkv, hd, t, kw) in shapes.items():
         q, k, v = case(b, hq, hkv, hd, t, t)
-        check(f"{label} B={b} T={t} Hq={hq} Hkv={hkv} hd={hd} {kw}", q, k,
-              v, **kw)
+        got = check(f"{label} B={b} T={t} Hq={hq} Hkv={hkv} hd={hd} {kw}",
+                    q, k, v, **kw)
+        repeat(label, got, q, k, v, **kw)
+        del got
         if "cap" not in kw:
             def library(q=q, k=k, v=v):
                 return F.scaled_dot_product_attention(
@@ -758,7 +798,7 @@ def attention_kernel_row(dev, g) -> dict:
                       "window block mask, enable_gqa), float32; "
                       "scaled_dot_product_attention(is_causal, enable_gqa) "
                       "at llama3.2-1b's shapes",
-        cases=cases)
+        registers=resources, blocks_per_sm=occupancy, cases=cases)
 
 
 # ---------------------------------------------------------------------------
@@ -1910,7 +1950,7 @@ def main() -> None:
     # flash_decode / flash_decode_paged at the serve path's shapes, and
     # flash_attention at the prefill's
     rows.update(decode_kernel_rows(dev, g))
-    rows["flash_attention"] = attention_kernel_row(dev, g)
+    rows["flash_attention"] = attention_kernel_row(dev, g, lib.log)
 
     print("  device time (CUDA graph replay); eager (back-to-back calls) in "
           "brackets")
@@ -2124,7 +2164,7 @@ def main() -> None:
             "eager_ms": r["eager_ms"], "unit": r["unit"],
             "n_split": r.get("n_split"), "host_us": r.get("host_us"),
             "plans": r.get("plans"), "registers": r.get("registers"),
-            "cases": r.get("cases")})
+            "blocks_per_sm": r.get("blocks_per_sm"), "cases": r.get("cases")})
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"main": main_out, "eigh_16_factors_eager_ms": eigh_ms,
                       "whisper_agree_losses": whisper_agree}))

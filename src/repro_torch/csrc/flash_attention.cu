@@ -21,23 +21,72 @@
 // walks only the key tiles a query of its tile can see (up to its last
 // query when causal, from its first query - window + 1 with a window); the
 // TPU kernel walks every block and masks, which gives the same function.
-// 256 threads as a 16 x 16 grid (ty, tx): thread (ty, tx) scores rows
-// ty + 16 i (i < 4) against keys tx + 16 j of the tile (Q and K in shared
-// memory, float4 along hd), keeps an online softmax (m, l) for its four
-// rows (reduced over the 16 lanes of the row with shuffles), writes P to
-// shared memory, and accumulates O for the same four rows over hd / 16 of
-// the columns in registers.  Tiles of 64 keys (32 at hd 256) are loaded
-// synchronously; shared memory is 35-145 KB a block (the dynamic-size
-// attribute is set once per instantiation).  expf and tanhf are the IEEE
-// versions (no fast math).
+// What the design does about the card:
+//
+// - An asynchronous K/V ring.  Tiles of 64 keys at every head dim; K and V
+//   are staged apart, one buffer each, by 16-byte cp.async copies
+//   (gemm_pipeline.cuh's pipe::cp_async16, zero fill for keys >= Tk from a
+//   clamped address).  V of tile t is copied while S = Q K^T of tile t is
+//   multiplied and its softmax taken; K of tile t + 1 is copied while
+//   O += P V of tile t is.  Two barriers a tile: one when K has landed
+//   (which also frees V and P of the tile before), one when V has landed
+//   and P is written (which also frees K).
+// - The register patch.  Each thread holds four rows of the block's 64
+//   and, of each, the keys tx + 16 j (j < 4) of the tile (tx = tid % 16),
+//   so a row's 64 scores lie in the 16 lanes of one half-warp: its max is
+//   four shuffles, and the row sum l is kept per lane and added over the
+//   lanes once, at the end.  Below hd 128, thread (ty, tx) = (tid / 16,
+//   tid % 16) scores rows ty + 16 i over all dims: eight float4 shared-
+//   memory reads for 64 FMAs a step of four dims (the older 32-key tile at
+//   hd 256 read six for 32).  At hd 128 and 256, where one block an SM
+//   leaves up to 255 registers a thread, warp w scores rows 8w..8w+7 and
+//   each lane a patch of 8 rows x 8 keys over a quarter of the dims (d / 4
+//   = lane / 8 mod 4): sixteen reads for 256 FMAs; the four partial sums
+//   of a score then meet in two exchanges of halves by shuffles (lanes
+//   ^ 16 swap rows, ^ 8 keys), in one fixed order, which leaves the lane
+//   rows 8w + 2 i + lane / 16.  On an NVIDIA H100 80GB HBM3 at 700 W
+//   (tools/attention_ab.py) this layout was 6.5% faster at hd 256 and, at
+//   hd 64, where it needs one block an SM, 13% slower.  O is accumulated for
+//   the thread's own four rows over hd / 16 of the columns, so the online
+//   softmax's rescale stays in the thread.  P goes through shared memory
+//   (a float4 read serves four keys of a row in O += P V; shuffling it
+//   within the half-warp instead was 2-5% slower at both head dims).
+// - Cheaper softmax arithmetic.  log2(e) is folded into the scale (and
+//   into cap), so every exponential is exp2f; the causal / window / Tk
+//   mask is applied only on the tiles that cross the diagonal, the
+//   window's edge or Tk (a tile wholly inside every row's visible keys
+//   skips it).  tanhf stays the IEEE version (tanh.approx's ~2^-11 would
+//   not meet the 1e-5 tolerance).
+// - The grid.  One dimension, the query tile slowest and longest first:
+//   the causal tiles' work grows with their index, so the longest of every
+//   (row, KV head) go out first and the short ones fill the tail.
+//
+// Shared memory a block: Q [64][hd + 4], K [64][hd + 4], V [64][hd],
+// P [64][80] floats: 219,136 B at hd 256 and 120,832 B at hd 128 (one block
+// an SM; 254 and 210 registers), 71,680 B at hd 64 (two blocks, registers
+// capped at 128), 45,056 and 31,744 B at hd 32 and 16 (NVIDIA H100 80GB
+// HBM3, 700 W, CUDA 12.8).  All arithmetic is fp32 FMA on the CUDA cores;
+// no TF32, no fast math.
 #include <cuda_runtime.h>
 
+#include <climits>
+
+#include "gemm_pipeline.cuh"
+
 namespace {
+
+using repro_torch::pipe::cp_async16;
+using repro_torch::pipe::cp_async_commit;
+using repro_torch::pipe::cp_async_wait;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 64;        // (query, head) rows a block holds
 constexpr int kRowsPerThread = 4;
+constexpr int kKeys = 64;        // keys a tile holds
+constexpr int kKeyGroups = kKeys / 16;   // keys a thread scores
+constexpr int kPLd = kKeys + 16;         // padded P rows
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Strides {  // element strides of a (B, H, T, hd) view, unit along hd
@@ -46,15 +95,30 @@ struct Strides {  // element strides of a (B, H, T, hd) view, unit along hd
 
 template <int HD>
 struct Tile {
-  static constexpr int kKeys = HD >= 256 ? 32 : 64;  // keys a tile holds
-  static constexpr int kKeyGroups = kKeys / 16;     // keys a thread scores
   static constexpr int kVec = HD >= 64 ? 4 : HD / 16;
   static constexpr int kCols = HD / (16 * kVec);    // column groups of O
   static constexpr int kQkLd = HD + 4;              // padded Q / K rows
-  static constexpr int kPLd = kKeys + 16;           // padded P rows
+  static constexpr int kQuads = HD / 4;             // 16-byte pieces a row
   static constexpr int kFloats =
       kRows * kQkLd + kKeys * kQkLd + kKeys * HD + kRows * kPLd;
+  // hd 128 and 256 hold one block an SM by shared memory, so ptxas may
+  // spend up to 255 registers a thread (64 accumulators at hd 256); below,
+  // two blocks an SM cap it at 128
+  static constexpr int kMinBlocks = HD >= 128 ? 1 : 2;
+  // with registers to spare, QK^T splits the dims over four lanes (below)
+  static constexpr bool kSplit = HD >= 128;
 };
+
+// Block row of the thread's row i (of 4); its keys are tx + 16 j (j < 4),
+// tx = tid % 16, on either layout.
+template <int HD>
+__device__ __forceinline__ int row_of(int i) {
+  const int tid = threadIdx.x;
+  if constexpr (Tile<HD>::kSplit)
+    return 8 * (tid >> 5) + 2 * i + ((tid >> 4) & 1);
+  else
+    return (tid >> 4) + 16 * i;
+}
 
 template <int N>
 struct Vec;
@@ -88,10 +152,6 @@ struct Vec<4> {
   }
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
 __device__ __forceinline__ float dot4(const float4& a, const float4& b,
                                       float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -100,26 +160,44 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b,
   return fmaf(a.w, b.w, acc);
 }
 
-// One block an SM at hd 128 and 256 (shared memory), so the minimum lets
-// ptxas spend up to 255 registers a thread: at hd 256 a thread holds 64
-// accumulators beside its scores and the float4 operands in flight.
+// Copies of keys [k0, k0 + kKeys) of a K or V row into dst ([kKeys][ld]);
+// keys >= tk are zero-filled, so their P (0) never meets a stale value.
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__device__ __forceinline__ void copy_keys(float* dst, int ld,
+                                          const float* src, long long st,
+                                          int k0, int tk) {
+  constexpr int kQuads = Tile<HD>::kQuads;
+  for (int idx = threadIdx.x; idx < kKeys * kQuads; idx += kThreads) {
+    const int kk = idx / kQuads, d = (idx - kk * kQuads) * 4;
+    const int j = k0 + kk;
+    cp_async16(dst + kk * ld + d, src + min(j, tk - 1) * st + d, j < tk);
+  }
+  cp_async_commit();
+}
+
+// in_scale, out_scale: the score is out_scale * tanh(in_scale * q.k) with a
+// softcap and in_scale * q.k without, in log2 units (exp2 of it is e^s).
+template <int HD>
+__global__ void __launch_bounds__(kThreads, Tile<HD>::kMinBlocks)
     attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     Strides qs, Strides ks, Strides os, int group, int tq,
-                     int tk, int causal, int window, float cap, float scale) {
+                     Strides qs, Strides ks, Strides os, int hkv, int group,
+                     int tq, int tk, int n_tiles, int causal, int window,
+                     float cap, float in_scale, float out_scale) {
   using T = Tile<HD>;
   extern __shared__ float4 smem4[];
   float* qsm = reinterpret_cast<float*>(smem4);  // [kRows][kQkLd]
   float* ksm = qsm + kRows * T::kQkLd;           // [kKeys][kQkLd]
-  float* vsm = ksm + T::kKeys * T::kQkLd;        // [kKeys][HD]
-  float* psm = vsm + T::kKeys * HD;              // [kRows][kPLd]
+  float* vsm = ksm + kKeys * T::kQkLd;           // [kKeys][HD]
+  float* psm = vsm + kKeys * HD;                 // [kRows][kPLd]
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, tx = tid & 15;
   const int bq = kRows / group;                  // queries a tile holds
-  const int tile = gridDim.x - 1 - blockIdx.x;   // longest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  // the query tile varies slowest, longest first
+  const int pairs = gridDim.x / n_tiles;         // B * Hkv
+  const int pair = blockIdx.x % pairs;
+  const int tile = n_tiles - 1 - blockIdx.x / pairs;
+  const int h = pair % hkv, b = pair / hkv;
   const int q0 = tile * bq;
   const int q_last = min(q0 + bq, tq) - 1;
   const float* qb = q + b * qs.b + static_cast<long long>(h) * group * qs.h;
@@ -131,103 +209,150 @@ __global__ void __launch_bounds__(kThreads, 1)
   bool rvalid[kRowsPerThread];
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = ty + 16 * i;
+    const int r = row_of<HD>(i);
     qrow[i] = q0 + r / group;
     rvalid[i] = r < group * bq && qrow[i] < tq;
   }
 
-  constexpr int kQuads = HD / 4;
-  for (int idx = tid; idx < kRows * kQuads; idx += kThreads) {
-    const int r = idx / kQuads, d = (idx - r * kQuads) * 4;
+  // the keys some row of the tile can see
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(tk, q_last + 1) : tk;
+
+  // the first group in flight: Q (padding rows zero-filled) and K of the
+  // first tile
+  for (int idx = tid; idx < kRows * T::kQuads; idx += kThreads) {
+    const int r = idx / T::kQuads, d = (idx - r * T::kQuads) * 4;
     const int qi = q0 + r / group, g = r - (r / group) * group;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < group * bq && qi < tq) x = load4(qb + g * qs.h + qi * qs.t + d);
-    *reinterpret_cast<float4*>(qsm + r * T::kQkLd + d) = x;
+    const bool ok = r < group * bq && qi < tq;
+    cp_async16(qsm + r * T::kQkLd + d, ok ? qb + g * qs.h + qi * qs.t + d : q,
+               ok);
   }
+  if (lo < hi)
+    copy_keys<HD>(ksm, T::kQkLd, kb, ks.t, lo, tk);
+  else
+    cp_async_commit();
 
   float acc[kRowsPerThread][T::kCols][T::kVec], m[kRowsPerThread],
       l[kRowsPerThread];
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
     m[i] = kNegInf;
-    l[i] = 0.f;
+    l[i] = 0.f;   // this lane's part of the row sum
 #pragma unroll
     for (int c = 0; c < T::kCols; ++c)
 #pragma unroll
       for (int e = 0; e < T::kVec; ++e) acc[i][c][e] = 0.f;
   }
-
-  // the keys some row of the tile can see
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? min(tk, q_last + 1) : tk;
   const float neg_inf = -__int_as_float(0x7f800000);
 
-  for (int k0 = lo; k0 < hi; k0 += T::kKeys) {
-    for (int idx = tid; idx < T::kKeys * kQuads; idx += kThreads) {
-      const int kk = idx / kQuads, d = (idx - kk * kQuads) * 4;
-      const int j = k0 + kk;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
-      if (j < tk) {
-        a = load4(kb + j * ks.t + d);
-        c = load4(vb + j * ks.t + d);
+  for (int k0 = lo; k0 < hi; k0 += kKeys) {
+    cp_async_wait<0>();   // K of this tile (and Q, the first time)
+    __syncthreads();      // ... for every thread; V and P are free
+    copy_keys<HD>(vsm, HD, vb, ks.t, k0, tk);
+
+    // S = Q K^T for the thread's rows row_of(i) and keys tx + 16 j
+    float s[kRowsPerThread][kKeyGroups];
+    if constexpr (T::kSplit) {
+      // lane (kx, dg) = (lane % 8, lane / 8): rows 8w + r (r < 8) x keys
+      // kx + 8 j (j < 8) over the dims d with d / 4 = dg (mod 4)
+      const int lane = tid & 31, kx = lane & 7, dg = lane >> 3;
+      const bool hi_row = lane & 16, hi_key = lane & 8;
+      const float* qw = qsm + 8 * (tid >> 5) * T::kQkLd + 4 * dg;
+      const float* kw = ksm + kx * T::kQkLd + 4 * dg;
+      float sp[8][8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sp[r][j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < HD; d += 16) {
+        float4 qv[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          qv[r] = *reinterpret_cast<const float4*>(qw + r * T::kQkLd + d);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 kv = *reinterpret_cast<const float4*>(
+              kw + 8 * j * T::kQkLd + d);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) sp[r][j] = dot4(qv[r], kv, sp[r][j]);
+        }
       }
-      *reinterpret_cast<float4*>(ksm + kk * T::kQkLd + d) = a;
-      *reinterpret_cast<float4*>(vsm + kk * HD + d) = c;
-    }
-    __syncthreads();
-
-    // S = Q K^T for rows ty + 16 i, keys tx + 16 j
-    float s[kRowsPerThread][T::kKeyGroups];
+      float s1[kRowsPerThread][8];   // rows 2 i + hi_row
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
+      for (int i = 0; i < kRowsPerThread; ++i)
 #pragma unroll
-      for (int j = 0; j < T::kKeyGroups; ++j) s[i][j] = 0.f;
+        for (int j = 0; j < 8; ++j) {
+          const float lo = sp[2 * i][j], hi = sp[2 * i + 1][j];
+          s1[i][j] = (hi_row ? hi : lo) +
+                     __shfl_xor_sync(kFull, hi_row ? lo : hi, 16);
+        }
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+        for (int j = 0; j < kKeyGroups; ++j) {   // keys kx + 8 (2 j + hi_key)
+          const float lo = s1[i][2 * j], hi = s1[i][2 * j + 1];
+          s[i][j] = (hi_key ? hi : lo) +
+                    __shfl_xor_sync(kFull, hi_key ? lo : hi, 8);
+        }
+    } else {
+      // thread (ty, tx) = (tid / 16, tid % 16): rows ty + 16 i, eight
+      // float4 reads for 64 FMAs a step of four dims
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+        for (int j = 0; j < kKeyGroups; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[kRowsPerThread], kv[T::kKeyGroups];
+      for (int d = 0; d < HD; d += 4) {
+        float4 qv[kRowsPerThread], kv[kKeyGroups];
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(
-            qsm + (ty + 16 * i) * T::kQkLd + d);
+        for (int i = 0; i < kRowsPerThread; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(
+              qsm + row_of<HD>(i) * T::kQkLd + d);
 #pragma unroll
-      for (int j = 0; j < T::kKeyGroups; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(
-            ksm + (tx + 16 * j) * T::kQkLd + d);
+        for (int j = 0; j < kKeyGroups; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(
+              ksm + (tx + 16 * j) * T::kQkLd + d);
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
+        for (int i = 0; i < kRowsPerThread; ++i)
 #pragma unroll
-        for (int j = 0; j < T::kKeyGroups; ++j)
-          s[i][j] = dot4(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < kKeyGroups; ++j)
+            s[i][j] = dot4(qv[i], kv[j], s[i][j]);
+      }
     }
 
-    // online softmax; masked scores are -inf, so their p is exactly 0
+    // does some (row, key) pair of the tile fall outside the visible keys?
+    const bool edge = k0 + kKeys > tk || (causal && k0 + kKeys - 1 > q0) ||
+                      (window > 0 && q_last - k0 >= window);
+    // online softmax in log2 units; masked scores are -inf, so their p is
+    // exactly 0
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       float mx = neg_inf;
 #pragma unroll
-      for (int j = 0; j < T::kKeyGroups; ++j) {
-        const int key = k0 + tx + 16 * j;
-        const bool ok = rvalid[i] && key < tk &&
-                        (!causal || key <= qrow[i]) &&
-                        (window <= 0 || qrow[i] - key < window);
-        float x = s[i][j] * scale;
-        if (cap > 0.f) x = cap * tanhf(x / cap);
-        s[i][j] = ok ? x : neg_inf;
-        mx = fmaxf(mx, s[i][j]);
+      for (int j = 0; j < kKeyGroups; ++j) {
+        float x = cap > 0.f ? out_scale * tanhf(s[i][j] * in_scale)
+                            : s[i][j] * in_scale;
+        if (edge) {
+          const int key = k0 + tx + 16 * j;
+          const bool ok = key < tk && (!causal || key <= qrow[i]) &&
+                          (window <= 0 || qrow[i] - key < window);
+          x = ok ? x : neg_inf;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
       }
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
       const float mn = fmaxf(m[i], mx);   // finite: m starts at -1e30
-      const float corr = expf(m[i] - mn);
+      const float corr = exp2f(m[i] - mn);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < T::kKeyGroups; ++j) {
-        s[i][j] = expf(s[i][j] - mn);
+      for (int j = 0; j < kKeyGroups; ++j) {
+        s[i][j] = exp2f(s[i][j] - mn);
         rs += s[i][j];
       }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) rs += __shfl_xor_sync(kFull, rs, o);
       l[i] = l[i] * corr + rs;
       m[i] = mn;
 #pragma unroll
@@ -235,18 +360,20 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int e = 0; e < T::kVec; ++e) acc[i][c][e] *= corr;
 #pragma unroll
-      for (int j = 0; j < T::kKeyGroups; ++j)
-        psm[(ty + 16 * i) * T::kPLd + tx + 16 * j] = s[i][j];
+      for (int j = 0; j < kKeyGroups; ++j)
+        psm[row_of<HD>(i) * kPLd + tx + 16 * j] = s[i][j];
     }
-    __syncthreads();
+    cp_async_wait<0>();   // V of this tile
+    __syncthreads();      // ... and P, for every thread; K is free
+    if (k0 + kKeys < hi) copy_keys<HD>(ksm, T::kQkLd, kb, ks.t, k0 + kKeys, tk);
 
-    // O += P V for rows ty + 16 i, columns c * 16 * kVec + tx * kVec + e
+    // O += P V for rows row_of(i), columns c * 16 * kVec + tx * kVec + e
 #pragma unroll 2
-    for (int kk = 0; kk < T::kKeys; kk += 4) {
+    for (int kk = 0; kk < kKeys; kk += 4) {
       float p[kRowsPerThread][4];
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i)
-        Vec<4>::load(psm + (ty + 16 * i) * T::kPLd + kk, p[i]);
+        Vec<4>::load(psm + row_of<HD>(i) * kPLd + kk, p[i]);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         float vv[T::kCols][T::kVec];
@@ -263,19 +390,22 @@ __global__ void __launch_bounds__(kThreads, 1)
               acc[i][c][e] = fmaf(p[i][u], vv[c][e], acc[i][c][e]);
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();   // Q alone is in flight when no tile ran
 
-  // every row with a valid key saw the largest of its scores, so l >= 1
+  // the row sums over the 16 lanes of the row; every row with a valid key
+  // saw the largest of its scores, so l >= 1
   int empty = 0;
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) l[i] += __shfl_xor_sync(kFull, l[i], o);
     if (!rvalid[i]) continue;
     if (l[i] == 0.f) {
       empty = 1;
       continue;
     }
-    const int r = ty + 16 * i;
+    const int r = row_of<HD>(i);
     float* o = out + b * os.b + (static_cast<long long>(h) * group +
                                  r % group) * os.h + qrow[i] * os.t;
     const float inv = 1.f / l[i];
@@ -299,7 +429,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       if (!rvalid[i] || l[i] != 0.f) continue;
-      const int r = ty + 16 * i;
+      const int r = row_of<HD>(i);
       float* o = out + b * os.b + (static_cast<long long>(h) * group +
                                    r % group) * os.h + qrow[i] * os.t;
       for (int d = tx; d < HD; d += 16) o[d] = mean[d];
@@ -308,24 +438,45 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int HD>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(float)) * Tile<HD>::kFloats;
+}
+
+// once per instantiation and process, outside any graph capture (the
+// first call); the attribute is the current device's, and a process of the
+// port drives one card
+template <int HD>
+int allow_smem() {
+  static const int status = repro_torch::pipe::allow_smem(
+      attention_kernel<HD>, smem_bytes<HD>());
+  return status;
+}
+
+template <int HD>
 int launch(const float* q, const float* k, const float* v, float* out, int b,
            int hq, int hkv, int tq, int tk, Strides qs, Strides ks,
            Strides os, int causal, int window, float cap, float scale,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * Tile<HD>::kFloats;
-  // once per instantiation and process, outside any graph capture (the
-  // first call); the attribute is the current device's, and a process of
-  // the port drives one card
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (const int status = allow_smem<HD>()) return status;
   const int group = hq / hkv;
   const int bq = kRows / group;
-  const dim3 grid((tq + bq - 1) / bq, hkv, b);
-  attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, qs, ks, os, group, tq, tk, causal, window, cap, scale);
+  const int n_tiles = (tq + bq - 1) / bq;
+  const long long blocks = static_cast<long long>(n_tiles) * hkv * b;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const float in_scale = cap > 0.f ? scale / cap : scale * kLog2e;
+  const float out_scale = cap * kLog2e;
+  attention_kernel<HD><<<static_cast<unsigned>(blocks), kThreads,
+                         smem_bytes<HD>(), stream>>>(
+      q, k, v, out, qs, ks, os, hkv, group, tq, tk, n_tiles, causal, window,
+      cap, in_scale, out_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int blocks_per_sm(int* blocks) {
+  if (const int status = allow_smem<HD>()) return status;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, attention_kernel<HD>, kThreads, smem_bytes<HD>()));
 }
 
 }  // namespace
@@ -361,5 +512,18 @@ extern "C" int repro_flash_attention_f32(
                          causal, window, cap, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Blocks of attention_kernel<hd> an SM holds on the current device (the
+// occupancy calculator's count for its registers and shared memory).
+extern "C" int repro_flash_attention_blocks_per_sm(int hd, int* blocks) {
+  switch (hd) {
+    case 16: return blocks_per_sm<16>(blocks);
+    case 32: return blocks_per_sm<32>(blocks);
+    case 64: return blocks_per_sm<64>(blocks);
+    case 128: return blocks_per_sm<128>(blocks);
+    case 256: return blocks_per_sm<256>(blocks);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -66,6 +66,8 @@ _SIGNATURES = {
     "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _I,
                                   _F, _F, _P],
+    # hd, blocks (out: an int)
+    "repro_flash_attention_blocks_per_sm": [_I, _P],
 }
 
 

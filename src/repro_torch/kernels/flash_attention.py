@@ -25,9 +25,18 @@ The CUDA kernel (``csrc/flash_attention.cu``) gives one block to each (row,
 KV head, tile of 64 / G queries), holding all G query heads of the group so
 each K/V tile in shared memory serves 64 (query, head) rows, and visits only
 the key tiles the tile's queries can see; an online softmax (m, l, acc) per
-row in float32 on the CUDA cores.  Bound on this card: operations, 4·hd·Hq·
-Σᵢnᵢ (nᵢ the keys row i sees) at 67 TFLOP/s, far above q, k, v and the
-output moved once at 3.35 TB/s.
+row in float32 on the CUDA cores.  Tiles of 64 keys at every head dim, K
+and V staged apart by ``cp.async`` (V of tile t lands while QKᵀ of tile t
+is multiplied, K of tile t + 1 while PV of tile t is), two barriers a tile,
+4 rows × 4 keys a thread (at hd 128 and 256 scored as 8 × 8 patches over a
+quarter of the dims, the partial sums met by shuffles), exp2 with log₂e
+folded into the scale, the mask only on the tiles that cross the diagonal,
+the window's edge or Tk, and the query tiles longest first over a
+one-dimensional grid.  Shared memory a block: 219,136 B at hd 256 and
+120,832 B at hd 128 (one block an SM), 71,680 B at hd 64 (two);
+:func:`blocks_per_sm` reads the count on the card.
+Bound on this card: operations, 4·hd·Hq·Σᵢnᵢ (nᵢ the keys row i sees) at
+67 TFLOP/s, far above q, k, v and the output moved once at 3.35 TB/s.
 
 The kernel reads q, k and v through their strides (unit along hd), so the
 LM's (B, T, H, hd) projections pass as ``.transpose(1, 2)`` views without a
@@ -38,6 +47,7 @@ launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -146,3 +156,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0):
 
 
 flash_attention.launches = 0
+
+
+def blocks_per_sm(hd: int) -> int:
+    """Blocks of the kernel's ``hd`` instantiation that an SM of the current
+    card holds: CUDA's occupancy calculator on its registers and shared
+    memory (the card only)."""
+    n = ctypes.c_int(0)
+    status = _build.load().lib.repro_flash_attention_blocks_per_sm(
+        int(hd), ctypes.addressof(n))
+    _build.check(status, "flash_attention")
+    return n.value

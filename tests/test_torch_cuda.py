@@ -838,7 +838,10 @@ def test_reduced_serving_run_on_card(arch, spec, route):
 # ---------------------------------------------------------------------------
 
 # (B, Hq, Hkv, hd, Tq, Tk, causal, window, cap): every head dim, G = 1..4,
-# ragged lengths, Tk < Tq with a window (rows with no valid key), Tk > Tq
+# ragged lengths, Tk < Tq with a window (rows with no valid key), Tk > Tq;
+# then every head dim at every G on lengths no 64-key tile divides, with
+# the causal diagonal crossing key and query tiles, a window whose edge
+# falls inside a key tile (20) or spans one (70), and a softcap
 ATTN_SHAPES = [(2, 4, 2, 16, 21, 21, True, 16, 50.0),
                (1, 3, 3, 32, 70, 70, False, 0, 0.0),
                (2, 9, 3, 64, 130, 130, True, 0, 0.0),
@@ -847,6 +850,14 @@ ATTN_SHAPES = [(2, 4, 2, 16, 21, 21, True, 16, 50.0),
                (1, 8, 4, 256, 257, 257, False, 0, 50.0),
                (2, 4, 1, 64, 90, 30, True, 8, 0.0),
                (2, 4, 2, 16, 25, 60, True, 0, 20.0)]
+ATTN_SHAPES += [(1, 2 * group, 2, hd, 197, 197, True, window, cap)
+                for hd in FA.HEAD_DIMS for group in (1, 2, 3, 4)
+                for window, cap in ((0, 0.0), (20, 50.0), (70, 0.0))]
+ATTN_SHAPES += [(1, 2 * group, 2, hd, tq, tk, causal, window, 30.0)
+                for group, hd in zip((1, 2, 3, 4), (32, 128, 256, 64))
+                for tq, tk, causal, window in ((150, 70, True, 30),
+                                               (45, 130, False, 0),
+                                               (45, 130, True, 0))]
 
 
 def _attn_case(g, b, hq, hkv, hd, tq, tk):
@@ -872,6 +883,27 @@ def test_flash_attention_on_card(shape):
     # contiguous (B, H, T, hd) operands give the same result
     _close(FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               **kw), got, tol=1e-6)
+
+
+@pytest.mark.parametrize("hd,tq,tk", [(64, 1024, 1024), (256, 333, 333),
+                                      (256, 150, 70)])
+def test_flash_attention_repeats_bitwise(hd, tq, tk):
+    """Two calls on the same inputs give the same bits: every block sums
+    its keys in one fixed order."""
+    g = _card()
+    q, k, v = _attn_case(g, 1, 8, 2, hd, tq, tk)
+    kw = dict(causal=True, window=40 if tk < tq else 0, cap=50.0)
+    assert torch.equal(FA.flash_attention(q, k, v, **kw),
+                       FA.flash_attention(q, k, v, **kw))
+
+
+def test_flash_attention_blocks_per_sm():
+    """Every instantiation fits an SM: one block at hd 128 and 256 (shared
+    memory), at least two at hd 64 and below."""
+    _card()
+    got = {hd: FA.blocks_per_sm(hd) for hd in FA.HEAD_DIMS}
+    assert got[256] == got[128] == 1, got
+    assert min(got[hd] for hd in (16, 32, 64)) >= 2, got
 
 
 def test_flash_attention_wrapper_raises_on_bad_operands():

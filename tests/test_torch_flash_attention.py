@@ -5,7 +5,8 @@ and against its oracle ``repro.kernels.ref.flash_attention_ref`` at ragged
 lengths, with Tk < Tq and Tk > Tq, and on rows with no valid key.
 
 The same seeded numpy inputs go to both sides.  GQA groups 1–4, causal or
-not, a sliding window and a score softcap, head dims 16 and 64.
+not, a sliding window and a score softcap, head dims 16, 64, 128 and 256
+(gemma2's).
 Tolerance: max|port − JAX| ≤ 1e-5 · max|JAX| (float32 sums in another
 order).  The CUDA kernel is held against this plain version on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -24,7 +25,8 @@ TOL = 1e-5
 HKV = 2
 # (causal, window, cap, hd)
 CASES = [(True, 0, 0.0, 16), (True, 12, 0.0, 64), (False, 0, 30.0, 16),
-         (True, 9, 20.0, 64), (False, 10, 0.0, 64)]
+         (True, 9, 20.0, 64), (False, 10, 0.0, 64),
+         (True, 20, 30.0, 128), (True, 0, 50.0, 256), (False, 7, 50.0, 256)]
 
 
 def _inputs(seed, b, hq, tq, tk, hd, hkv=HKV):
