@@ -89,7 +89,9 @@ on failure (nothing is caught):
             tokens equal, or differing only at a proven near tie.
             Reduced whisper-small, 4 K-FAC steps of the launcher's setup
             on the card and on the CPU, same weights and uniforms: losses
-            within rtol 1e-3.
+            within rtol 1e-3.  The first-order baselines, 6 reduced-
+            autoencoder steps of SGD with momentum (lr 0.1) and Adam (lr
+            1e-2) on the card and on the CPU: losses within rtol 1e-3.
 5. main     ``Trainer.fit`` on the full-width 784-1000-500-250-30 mirrored
             autoencoder, N = 8192 full batch, 25 steps (warmup refreshes,
             T3 refreshes, lambda steps and one gamma sweep), on three paths
@@ -104,6 +106,20 @@ on failure (nothing is caught):
             falling.  On the clipped (fused) path the applied clip factor
             nu of every step must lie in (0, 1] and the applied step's norm
             must be finite and above 0; both are printed per step.
+   race     the optimizer race of ``benchmarks/bench_optimizer_race.py``
+            at full width: phase 5's autoencoder, weights and data, 25
+            steps of ``Trainer.fit`` each of SGD with momentum 0.9 at lr
+            0.03, 0.1 and 0.3, Adam at lr 1e-2 and blkdiag K-FAC without
+            momentum; phase 5's blkdiag run is the K-FAC row.  Per row the
+            per-step host ms (``timed``), the plain-step median and the
+            total, the final loss, peak memory and exact launch counts
+            (none for SGD and Adam); then the time to the target, the best
+            SGD row's final loss: each row's first step at or below it and
+            its host ms summed through that step; likewise to the best
+            first-order row's final loss.  Fails unless every loss
+            is finite and K-FAC ends below the best SGD row (the claim of
+            ``examples/autoencoder_kfac.py``); the momentum and Adam
+            orderings are printed, not held.
 6. serve    ``Engine.run`` on full-width llama3.2-1b (16 layers, d 2048,
             vocab 128256, float32 weights from seed 0, bf16 paged KV cache):
             32 greedy requests with prompts of 64-1024 tokens, 64 new
@@ -132,16 +148,19 @@ on failure (nothing is caught):
             ns): exact launch counts (patch_factor twice a step), the loss
             finite and falling, per-step host times and peak memory.  It
             runs after serving, so that the serve phase meets the process
-            as it did before this path was ported.
+            as it did before this path was ported.  Then 3 Adam steps
+            (lr 1e-3) through ``launch/train.py --optimizer adam``: the
+            loss finite, no kernel launched, plain-step median and peak
+            memory.
 7. profile  each autoencoder path twice more: per-stage host times
             (synchronized), then device time by kernel under
             ``torch.profiler``; whisper's steps 3 and 4 of another run
             under ``torch.profiler``, with factor_update's device ms.  The
             profiles come last, so that no profiled window precedes a
             timed path.
-8. summary  the ``{"main": ...}``, ``{"serve": ...}`` and ``{"kernels":
-            [...]}`` lines, the nvidia-smi line, and last ``{"ok": true,
-            "device": {...}}``.
+8. summary  the ``{"main": ...}``, ``{"serve": ...}``, ``{"race": ...}``
+            and ``{"kernels": [...]}`` lines, the nvidia-smi line, and last
+            ``{"ok": true, "device": {...}}``.
 
 Bounds are the larger of fp32 operations over 67 TFLOP/s and bytes over
 3.35 TB/s (H100 SXM data sheet, at a 700 W power limit).  factor_update's
@@ -1505,27 +1524,19 @@ def ae_model():
 AE_STEPS, AE_REFRESH, AE_SWEEP, AE_N_REFRESH = 25, (1, 2, 5, 10, 15), 20, 7
 
 
-def autoencoder_main(label: str, steps: int = AE_STEPS, mlp=None,
-                     params=None, data=None) -> dict:
-    """``Trainer.fit`` of the full-width autoencoder on one path (phase 5),
-    the launch counters zeroed just before and read just after: exact
-    counts, the loss finite and falling, per-step host times and peak
-    memory.  ``python3 -c 'import chip_smoke as c; c.autoencoder_main(
-    "eigen")'`` runs one path alone, in a process of its own (the A/B of
-    two checkouts)."""
+def ae_launches(label: str, steps: int) -> dict:
+    """The launch counts of ``steps`` full-width autoencoder steps on one
+    K-FAC path.  blkdiag without momentum launches what blkdiag does: the
+    momentum tangent enters only the quadratic model, which runs no kernel
+    of ``repro_torch.kernels``."""
     from repro_torch import kernels as K
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.optimizers.kfac import kfac
-    from repro_torch.training.trainer import Trainer
-    if mlp is None:
-        mlp, params, data = ae_model()
     paths = ae_paths()
-    cfg = paths[label]
     zero = {name: 0 for name in K.WRAPPERS}
     ns = AE_N_REFRESH * 16 * paths["blkdiag"].ns_iters
-    want = {"blkdiag": dict(zero, factor_update=16 * steps,
-                            precondition=8 * steps + 2 * 8, ns_step=ns,
-                            matmul=2 * (8 * steps + 2 * 8 + ns)),
+    blkdiag = dict(zero, factor_update=16 * steps,
+                   precondition=8 * steps + 2 * 8, ns_step=ns,
+                   matmul=2 * (8 * steps + 2 * 8 + ns))
+    return {"blkdiag": blkdiag, "blkdiag_no_momentum": blkdiag,
             "eigen": dict(zero, factor_update=16 * steps,
                           rotate_rescale=8 * steps + 2 * 8,
                           matmul_rescale=8 * steps + 2 * 8,
@@ -1534,10 +1545,18 @@ def autoencoder_main(label: str, steps: int = AE_STEPS, mlp=None,
                           precond_momentum=8 * steps,
                           axpy_momentum=8 * steps,
                           matmul=2 * ns + 8 * steps)}[label]
+
+
+def fit_timed(opt, mlp, params, data, steps: int, log_every: int = 5):
+    """``Trainer.fit`` of ``opt`` with every update timed (``timed``), the
+    launch counters zeroed just before and read just after.  Returns (fit
+    result, step ms, launches, peak bytes, bytes allocated before)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.training.trainer import Trainer
     step_ms = []
-    trainer = Trainer(mlp, timed(kfac(mlp, cfg, family="bernoulli",
-                                      device="cuda"), step_ms),
-                      TrainConfig(steps=steps, seed=0, log_every=5),
+    trainer = Trainer(mlp, timed(opt, step_ms),
+                      TrainConfig(steps=steps, seed=0, log_every=log_every),
                       device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1546,8 +1565,26 @@ def autoencoder_main(label: str, steps: int = AE_STEPS, mlp=None,
     out = trainer.fit(params, data, steps=steps,
                       log=lambda msg: print(f"  {msg}"))
     torch.cuda.synchronize()
-    launches = K.launches()
-    peak = torch.cuda.max_memory_allocated()
+    return (out, step_ms, K.launches(), torch.cuda.max_memory_allocated(),
+            resident)
+
+
+def autoencoder_main(label: str, steps: int = AE_STEPS, mlp=None,
+                     params=None, data=None) -> dict:
+    """``Trainer.fit`` of the full-width autoencoder on one path (phase 5),
+    the launch counters zeroed just before and read just after: exact
+    counts, the loss finite and falling, per-step host times and peak
+    memory.  ``python3 -c 'import chip_smoke as c; c.autoencoder_main(
+    "eigen")'`` runs one path alone, in a process of its own (the A/B of
+    two checkouts)."""
+    from repro_torch.optimizers.kfac import kfac
+    if mlp is None:
+        mlp, params, data = ae_model()
+    cfg = ae_paths()[label]
+    want = ae_launches(label, steps)
+    out, step_ms, launches, peak, resident = fit_timed(
+        kfac(mlp, cfg, family="bernoulli", device="cuda"), mlp, params,
+        data, steps)
     losses = [h["loss"] for h in out["history"]]
     srt = sorted(step_ms)
     plain = sorted(t for i, t in enumerate(step_ms)
@@ -1593,6 +1630,147 @@ def autoencoder_main(label: str, steps: int = AE_STEPS, mlp=None,
         "peak_mem_bytes": peak, "resident_bytes_before": resident,
         "losses": losses, "launches": launches,
         **({"nu": nus, "delta_norm": norms} if clipped else {})}
+
+
+# the race's first-order rows: (row, optimizer, its arguments), momentum 0.9
+RACE_BASELINES = [(f"sgd_momentum_lr{lr}", "sgd_momentum",
+                   {"lr": lr, "momentum": 0.9}) for lr in (0.03, 0.1, 0.3)]
+RACE_BASELINES.append(("adam_lr0.01", "adam", {"lr": 1e-2}))
+
+
+def race_main(mlp, params, data, kfac_row: dict,
+              steps: int = AE_STEPS) -> dict:
+    """The optimizer race at full width (phase "race"): phase 5's model,
+    weights and data, ``steps`` steps of each first-order row and of
+    blkdiag K-FAC without momentum through ``Trainer.fit`` under ``timed``;
+    ``kfac_row`` is phase 5's blkdiag run (``autoencoder_main``'s dict).
+    The time to a target sums the host ms of the steps through the first
+    one whose loss (computed in that step's gradient pass, before its
+    update) is at or below it.  The race's target is the best SGD row's
+    final loss; the best first-order row's final loss is a second one."""
+    from repro_torch import kernels as K
+    from repro_torch import optimizers
+    zero = {name: 0 for name in K.WRAPPERS}
+    specs = [(row, optimizers.get(kind, mlp, **kw), zero, (0,))
+             for row, kind, kw in RACE_BASELINES]
+    nomom = dataclasses.replace(ae_paths()["blkdiag"], use_momentum=False)
+    kfac_skip = (0, AE_SWEEP, *AE_REFRESH)
+    specs.append(("kfac_blkdiag_no_momentum",
+                  optimizers.kfac(mlp, nomom, family="bernoulli",
+                                  device="cuda"),
+                  ae_launches("blkdiag_no_momentum", steps), kfac_skip))
+    rows = {}
+    for row, opt, want, skip in specs:
+        print(f"[race:{row}] full width {mlp.dims}, N={N_ROWS}, {steps} "
+              f"steps")
+        out, step_ms, launches, peak, _ = fit_timed(opt, mlp, params, data,
+                                                    steps)
+        losses = [h["loss"] for h in out["history"]]
+        plain = sorted(t for i, t in enumerate(step_ms) if i not in skip)
+        rows[row] = {"step_ms": step_ms,
+                     "plain_step_ms_median": plain[len(plain) // 2],
+                     "total_ms": sum(step_ms), "losses": losses,
+                     "final_loss": losses[-1], "peak_mem_bytes": peak,
+                     "launches": launches}
+        if launches != want:
+            raise AssertionError(f"race {row}: launch counts {launches}, "
+                                 f"expected {want}")
+    rows["kfac_blkdiag"] = {
+        "step_ms": kfac_row["step_ms"],
+        "plain_step_ms_median": kfac_row["plain_step_ms_median"],
+        "total_ms": sum(kfac_row["step_ms"]), "losses": kfac_row["losses"],
+        "final_loss": kfac_row["losses"][-1],
+        "peak_mem_bytes": kfac_row["peak_mem_bytes"],
+        "launches": kfac_row["launches"]}
+    for row, r in rows.items():
+        print(f"  {row}: per-step ms {[round(t, 3) for t in r['step_ms']]}")
+        print(f"    plain-step median {r['plain_step_ms_median']:.3f} ms, "
+              f"total {r['total_ms']:.1f} ms; loss {r['losses'][0]:.4f} -> "
+              f"{r['final_loss']:.4f}; peak memory "
+              f"{r['peak_mem_bytes'] / 2 ** 20:.1f} MiB")
+        print(f"    launches: {r['launches']}")
+    final = {row: r["final_loss"] for row, r in rows.items()}
+    first_order = {row: final[row] for row, _, _ in RACE_BASELINES}
+    sgd = {row: v for row, v in first_order.items() if row.startswith("sgd")}
+    # the race's target, and beside it the best first-order row's final
+    # loss, which stays informative where every SGD rate climbs
+    targets = {"best_sgd": min(sgd, key=sgd.get),
+               "best_first_order": min(first_order, key=first_order.get)}
+    for tname, trow in targets.items():
+        target = final[trow]
+        print(f"[race] time to {tname}: {trow}'s final loss {target:.4f}")
+        for row, r in rows.items():
+            hit = next((i for i, v in enumerate(r["losses"])
+                        if v <= target), None)
+            r.setdefault("to_target", {})[tname] = {
+                "step": hit,
+                "ms": None if hit is None else sum(r["step_ms"][:hit + 1])}
+            print(f"  {row}: " + ("not reached" if hit is None else
+                                  f"step {hit}, "
+                                  f"{r['to_target'][tname]['ms']:.1f} ms"))
+    best_sgd = targets["best_sgd"]
+    claims = {
+        "kfac_below_best_sgd": final["kfac_blkdiag"] < final[best_sgd],
+        "kfac_below_no_momentum": (final["kfac_blkdiag"]
+                                   < final["kfac_blkdiag_no_momentum"]),
+        "no_momentum_below_adam": (final["kfac_blkdiag_no_momentum"]
+                                   < final["adam_lr0.01"]),
+        "adam_below_best_sgd": final["adam_lr0.01"] < final[best_sgd]}
+    print(f"[race] claims (only the first is held): {claims}")
+    bad = {row: r["losses"] for row, r in rows.items()
+           if not all(math.isfinite(v) for v in r["losses"])}
+    if bad:
+        raise AssertionError(f"race: loss not finite: {bad}")
+    if not claims["kfac_below_best_sgd"]:
+        raise AssertionError(f"race: K-FAC's final loss "
+                             f"{final['kfac_blkdiag']} is not below the best "
+                             f"SGD row's ({best_sgd}, {final[best_sgd]})")
+    return {"steps": steps, "n_rows": N_ROWS,
+            "targets": {t: {"row": r, "loss": final[r]}
+                        for t, r in targets.items()},
+            "claims": claims, "rows": rows}
+
+
+def whisper_adam(steps: int = 3) -> dict:
+    """Full-width whisper-small through ``launch/train.py --optimizer adam
+    --lr 1e-3``: the loss finite and no kernel of ``repro_torch.kernels``
+    launched; per-step host ms and peak memory."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    K.reset_launches()
+    ms = []
+    res = train.main(["--arch", "whisper-small", "--optimizer", "adam",
+                      "--lr", "1e-3", "--steps", str(steps)],
+                     log=lambda msg: print(f"  {msg}"),
+                     wrap_opt=lambda opt: timed(opt, ms))
+    torch.cuda.synchronize()
+    launches = K.launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in res["history"]]
+    plain = sorted(ms[1:])
+    print(f"[main:whisper-adam] full-width whisper-small, Adam lr 1e-3, "
+          f"batch 8, seq 64, {steps} steps")
+    print(f"  per-step ms: {[round(t, 1) for t in ms]}; plain-step median "
+          f"{plain[len(plain) // 2]:.1f} ms (step 0 includes the first "
+          f"calls' set-up); peak memory {peak / 2 ** 20:.1f} MiB, of which "
+          f"{resident / 2 ** 20:.1f} MiB was allocated before")
+    print(f"  losses: {[round(v, 4) for v in losses]}")
+    print(f"  launches: {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"whisper adam: loss not finite: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"whisper adam: kernels launched: {launches}")
+    del res
+    torch.cuda.empty_cache()
+    return {"steps": steps, "step_ms": ms,
+            "plain_step_ms_median": plain[len(plain) // 2],
+            "peak_mem_bytes": peak, "resident_bytes_before": resident,
+            "losses": losses, "launches": launches}
 
 
 def main() -> None:
@@ -2021,6 +2199,26 @@ def main() -> None:
             if not abs(a - b) <= 1e-3 * abs(b):
                 raise AssertionError(f"{label}: cuda path {a} vs cpu path "
                                      f"{b}")
+    from repro_torch import optimizers
+    for label, lr in (("sgd_momentum", 0.1), ("adam", 1e-2)):
+        hist = {}
+        for where in ("cuda", "cpu"):
+            mlp = MLP(small, device=where)
+            params = mlp.init_params(torch.Generator().manual_seed(0))
+            data = SyntheticAutoencoderData(small[0], 8, 256, seed=7,
+                                            device=where)
+            tr = Trainer(mlp, optimizers.get(label, mlp, lr=lr),
+                         TrainConfig(seed=0, log_every=10 ** 9),
+                         device=where)
+            hist[where] = [h["loss"] for h in tr.fit(
+                params, data, steps=6, log=lambda *_: None)["history"]]
+        print(f"[agree:{label}] reduced autoencoder losses cuda "
+              f"{hist['cuda']}")
+        print(f"        plain versions on the cpu    {hist['cpu']}")
+        for a, b in zip(hist["cuda"], hist["cpu"]):
+            if not abs(a - b) <= 1e-3 * abs(b):
+                raise AssertionError(f"{label}: cuda path {a} vs cpu path "
+                                     f"{b}")
     serve_agree = {arch: agree_serving(arch)
                    for arch in ("smollm-135m", "llama3.2-1b", "gemma2-2b")}
     whisper_agree = agree_whisper()
@@ -2036,6 +2234,15 @@ def main() -> None:
         launches_by_path[label] = main_out[label]["launches"]
 
     print(f"[time] main phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    # ---- race: first-order baselines against K-FAC at full width ------
+    t_race = time.perf_counter()
+    race_out = race_main(mlp, params, data, main_out["blkdiag"], steps)
+    race_out["phase_s"] = time.perf_counter() - t_race
+    for row, r in race_out["rows"].items():
+        if row != "kfac_blkdiag":          # phase 5's blkdiag run
+            launches_by_path[f"race_{row}"] = r["launches"]
+    print(f"[time] race phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
     # ---- 6. the serve path -------------------------------------------
     # full-width llama3.2-1b, the port's own weights from seed 0: 32
@@ -2128,6 +2335,8 @@ def main() -> None:
     # T3 refresh at 5, lambda steps at 4 and 9
     main_out["whisper"] = whisper_main(W_STEPS)
     launches_by_path["whisper"] = main_out["whisper"]["launches"]
+    main_out["whisper_adam"] = whisper_adam()
+    launches_by_path["whisper_adam"] = main_out["whisper_adam"]["launches"]
     print(f"[time] whisper phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
     # ---- 7. where the time goes --------------------------------------
@@ -2169,6 +2378,7 @@ def main() -> None:
     print(json.dumps({"main": main_out, "eigh_16_factors_eager_ms": eigh_ms,
                       "whisper_agree_losses": whisper_agree}))
     print(json.dumps({"serve": serve_out, "serve_agree": serve_agree}))
+    print(json.dumps({"race": race_out}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

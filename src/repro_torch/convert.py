@@ -11,7 +11,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.transform import KFACState
+from repro_torch.core.transform import KFACState, TransformState
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
@@ -58,3 +58,16 @@ def state_from_numpy(state: Mapping[str, Any], device="cuda") -> KFACState:
                                             device=device))
     return KFACState(**fields, inv_pending=_tree(state.get("inv_pending"),
                                                  device))
+
+
+def transform_state_from_numpy(state: Mapping[str, Any],
+                               device="cuda") -> TransformState:
+    """A first-order optimizer's state given as numpy (``vars(jax_state)``
+    after ``jax.tree.map(np.asarray, ...)``): ``step``, and ``inner``, the
+    chain's tuple of per-transform states, each ``()``, a velocity tree in
+    the parameters' layout, or Adam's ``{"mu", "nu", "count"}`` -> the
+    port's :class:`TransformState`, dtypes kept (``step`` and ``count``
+    int32)."""
+    device = resolve_device(device)
+    return TransformState(step=_tensor(state["step"], device),
+                          inner=_tree(state["inner"], device))

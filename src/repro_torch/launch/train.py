@@ -4,14 +4,16 @@
 
 trains full-width whisper-small with K-FAC on the card (``--device cuda``,
 the default; ``--device cpu`` runs the plain PyTorch versions, e.g. with
-``--reduced``).  The reference launcher's defaults: batch 8, seq 64,
-λ₀ 10, T3 5, ``inv_mode="blkdiag"`` with Newton–Schulz inverses.  Weights
-are the port's own random initialization from seed 0; the tokens and mel
-frames are the reference's synthetic streams, bitwise.  The reference's
-``--mesh``, ``--ckpt_dir``, ``--optimizer``, ``--inv_mode``,
-``--refresh_mode``, ``--tau1`` and ``--obs*`` options wait for their
-slices, and so does training the decoder-only archs: ``--arch`` offers
-whisper-small, the one arch whose training is held against the reference.
+``--reduced``).  ``--optimizer sgd_momentum`` or ``adam`` trains with a
+first-order baseline at ``--lr`` (default 1e-3) instead.  The reference
+launcher's defaults: batch 8, seq 64, λ₀ 10, T3 5, ``inv_mode="blkdiag"``
+with Newton–Schulz inverses.  Weights are the port's own random
+initialization from seed 0; the tokens and mel frames are the reference's
+synthetic streams, bitwise.  The reference's ``--mesh``, ``--ckpt_dir``,
+``--inv_mode``, ``--refresh_mode``, ``--tau1`` and ``--obs*`` options wait
+for their slices, and so does training the decoder-only archs: ``--arch``
+offers whisper-small, the one arch whose training is held against the
+reference.
 """
 from __future__ import annotations
 
@@ -19,11 +21,11 @@ import argparse
 
 import torch
 
+from repro_torch import optimizers
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.configs.base import KFACConfig, TrainConfig
 from repro_torch.data.pipeline import SyntheticLMData, make_audio_batch
 from repro_torch.models.lm import LM
-from repro_torch.optimizers.kfac import kfac
 from repro_torch.training.trainer import Trainer
 
 
@@ -55,6 +57,10 @@ def main(argv=None, log=print, wrap_opt=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--global_batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--optimizer", default="kfac",
+                    choices=["kfac", "sgd_momentum", "adam"])
+    ap.add_argument("--lr", type=float, default=1e-3,
+                    help="learning rate for the first-order baselines")
     ap.add_argument("--lambda_init", type=float, default=10.0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -63,7 +69,8 @@ def main(argv=None, log=print, wrap_opt=None):
            else get_config(args.arch))
     kcfg = KFACConfig(lambda_init=args.lambda_init, t3=5)
     lm = LM(cfg, device=args.device)
-    opt = kfac(lm, kcfg, device=args.device)
+    opt = optimizers.get(args.optimizer, lm, kfac_cfg=kcfg,
+                         device=args.device, lr=args.lr)
     if wrap_opt is not None:
         opt = wrap_opt(opt)
     params = lm.init_params(

@@ -489,9 +489,9 @@ class LM:
         return x, positions, labels, mask, enc_out, extra
 
     def loss(self, params, probes, batch, rng, mode: str = "plain"):
-        """Returns ``((loss_true, loss_sampled), {"recs": records})``;
-        ``rng`` is the head's uniforms (``models/head.py``), None in the
-        plain passes."""
+        """Returns ``((loss_true, loss_sampled), {"recs": records,
+        "metrics": {"loss": loss_true}})``; ``rng`` is the head's uniforms
+        (``models/head.py``), None in the plain passes."""
         cfg = self.cfg
         tg = Tagger(mode, probes)
         x, positions, labels, mask, enc_out, extra = self._prepare_inputs(
@@ -502,7 +502,8 @@ class LM:
             tg, h, self.head_weight(params), labels, mask, rng,
             logit_cap=cfg.logit_softcap,
             name=None if cfg.tie_embeddings else "lm_head")
-        return (lt, ls), {"recs": merge_records(tg.out(), recs, extra)}
+        return (lt, ls), {"recs": merge_records(tg.out(), recs, extra),
+                          "metrics": {"loss": lt}}
 
     def hidden(self, params, batch):
         """Final normed hidden states (for exact-Fisher J-products, App C);

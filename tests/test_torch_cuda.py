@@ -13,8 +13,9 @@ Every test is marked ``cuda`` and skips, inside its body, when
 Tolerance: max|kernel - plain| <= 1e-4 * max|plain| (fp32 sums over
 K <= 8192 in another order), 1e-4 * max|alpha * XᵀX| for factor_update,
 relative 1e-4 for the update chain's ΣD², and 1e-5 * max|plain| for the
-decode kernels (fp32 sums over <= 8192 keys) and flash_attention; TF32 is
-off.
+decode kernels (fp32 sums over <= 8192 keys) and flash_attention; the
+first-order baselines' losses over 6 reduced-autoencoder steps within
+rtol 1e-3 of the CPU's (``chip_smoke.py``'s phase 4); TF32 is off.
 """
 import math
 
@@ -22,8 +23,9 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch import optimizers
 from repro_torch.configs import get_reduced_config
-from repro_torch.configs.autoencoder import CONFIG
+from repro_torch.configs.autoencoder import CONFIG, reduced
 from repro_torch.configs.base import KFACConfig, TrainConfig
 from repro_torch.data.pipeline import SyntheticAutoencoderData
 from repro_torch.kernels import flash_attention as FA
@@ -546,6 +548,33 @@ def test_three_full_width_steps_eigen_and_fused(path):
     losses = [h["loss"] for h in out["history"]]
     assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
     assert K.launches() == LAUNCHES[path]
+
+
+@pytest.mark.parametrize("name,lr", [("sgd_momentum", 0.1), ("adam", 1e-2)])
+def test_first_order_steps_on_card_match_cpu(name, lr):
+    """6 steps of a first-order baseline on the reduced autoencoder on the
+    card and on the CPU from the same weights: the same losses, and no
+    kernel of ``repro_torch.kernels`` launched on the card."""
+    _card()
+    dims = autoencoder_dims(reduced())
+    hist = {}
+    for where in ("cuda", "cpu"):
+        mlp = MLP(dims, device=where)
+        params = mlp.init_params(torch.Generator().manual_seed(0))
+        data = SyntheticAutoencoderData(dims[0], 8, 256, seed=7,
+                                        device=where)
+        K.reset_launches()
+        out = Trainer(mlp, optimizers.get(name, mlp, lr=lr),
+                      TrainConfig(seed=0), device=where).fit(
+            params, data, steps=6, log=lambda *_: None)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert K.launches() == {k: 0 for k in K.WRAPPERS}
+        hist[where] = [h["loss"] for h in out["history"]]
+    assert all(math.isfinite(v) for v in hist["cuda"])
+    assert hist["cuda"][-1] < hist["cuda"][0]
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        assert abs(a - b) <= 1e-3 * abs(b), (hist["cuda"], hist["cpu"])
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,11 @@ largest magnitude (entries far below the array's scale carry the rounding
 of the large ones).  Eigh-based inverses, and the updates built on them,
 get 1e-4: the two LAPACK eigensolvers round differently where eigenvalues
 lie close together.
-Trajectories: step for step from the reference's state, loss, lambda,
-gamma, alpha, mu and rho within rtol 1e-3 at every step; free-running, the
-bands of ``test_trajectory_matches_live_jax`` (its docstring says why alpha
-and mu cannot be held to 1e-3 past the first steps there).
+Trajectories (with momentum, and without: ``use_momentum=False``): step
+for step from the reference's state, loss, lambda, gamma, alpha, mu and rho
+within rtol 1e-3 at every step; free-running, the bands of
+``test_trajectory_matches_live_jax`` (its docstring says why alpha and mu
+cannot be held to 1e-3 past the first steps there).
 """
 import dataclasses
 
@@ -344,19 +345,24 @@ def test_lambda_step(setup):
 # the slice as a whole: Trainer.fit against a live JAX Trainer.fit
 # ---------------------------------------------------------------------------
 
-TRAJECTORIES = [("eigh", 50), ("ns", 25)]
+# (inverse method, steps, use_momentum); the ids are the first two
+TRAJECTORIES = [pytest.param("eigh", 50, True, id="eigh-50"),
+                pytest.param("ns", 25, True, id="ns-25"),
+                pytest.param("eigh", 25, False, id="eigh-25-no_momentum")]
 _JAX_RUNS = {}
 
 
-def _jax_run(setup, method, steps):
+def _jax_run(setup, method, steps, momentum=True):
     """A live JAX ``Trainer.fit`` of the golden setup (tests/test_golden.py
     ``golden_run``: eigh or ns, lambda_init=3, t3=5, eta=1e-5, N=256,
-    seed 7), recording every optimizer step's inputs and outputs."""
-    if (method, steps) in _JAX_RUNS:
-        return _JAX_RUNS[(method, steps)]
+    seed 7), with or without momentum, recording every optimizer step's
+    inputs and outputs."""
+    if (method, steps, momentum) in _JAX_RUNS:
+        return _JAX_RUNS[(method, steps, momentum)]
     s = setup
     cfg = JKFACConfig(inv_mode="blkdiag", inverse_method=method,
-                      lambda_init=3.0, t3=5, eta=1e-5)
+                      lambda_init=3.0, t3=5, eta=1e-5,
+                      use_momentum=momentum)
     opt = joptimizers.kfac(s["jmlp"], cfg, family="bernoulli")
     record = []
 
@@ -370,24 +376,26 @@ def _jax_run(setup, method, steps):
                   None, None)
     hist = tr.fit(s["jparams"], s["jdata"], steps=steps,
                   log=lambda *_: None)["history"]
-    _JAX_RUNS[(method, steps)] = (hist, record)
+    _JAX_RUNS[(method, steps, momentum)] = (hist, record)
     return hist, record
 
 
-def _port_opt(setup, method):
+def _port_opt(setup, method, momentum=True):
     cfg = KFACConfig(inv_mode="blkdiag", inverse_method=method,
-                     lambda_init=3.0, t3=5, eta=1e-5)
+                     lambda_init=3.0, t3=5, eta=1e-5, use_momentum=momentum)
     return kfac(setup["mlp"], cfg, family="bernoulli", device="cpu")
 
 
-@pytest.mark.parametrize("method,steps", TRAJECTORIES)
-def test_each_step_matches_jax_from_its_state(setup, method, steps):
+@pytest.mark.parametrize("method,steps,momentum", TRAJECTORIES)
+def test_each_step_matches_jax_from_its_state(setup, method, steps,
+                                              momentum):
     """Step for step: every optimizer step of the port, started from the
     reference's state and parameters at that step with the same uniforms,
     gives the reference's step — stats, the warmup / T3 refreshes, the
-    step-20 gamma sweep and the T1 lambda rule included."""
-    want, record = _jax_run(setup, method, steps)
-    opt = _port_opt(setup, method)
+    step-20 gamma sweep and the T1 lambda rule included, with momentum and
+    without (mu then 0)."""
+    want, record = _jax_run(setup, method, steps, momentum)
+    opt = _port_opt(setup, method, momentum)
     for step, (jstate, jparams, jnew, jout) in enumerate(record):
         params = params_from_numpy(jparams, "cpu")
         if step == 0:
@@ -406,16 +414,18 @@ def test_each_step_matches_jax_from_its_state(setup, method, steps):
         assert int(state.step) == int(jout.step) == step + 1
 
 
-@pytest.mark.parametrize("method,steps", TRAJECTORIES)
-def test_trajectory_matches_live_jax(setup, method, steps):
+@pytest.mark.parametrize("method,steps,momentum", TRAJECTORIES)
+def test_trajectory_matches_live_jax(setup, method, steps, momentum):
     """Free-running: both trainers from the same start, JAX's uniforms
     injected every step.  alpha and mu are held only through step 4: the
     2x2 momentum solve amplifies rounding about tenfold per step (the
     reference against itself, parameters perturbed by 1e-7, differs by
     1e-2 in alpha from step 12), and one target drawn at step 3 lands on
-    the other side of sigmoid(z) in the two implementations."""
-    want, _ = _jax_run(setup, method, steps)
-    opt = _port_opt(setup, method)
+    the other side of sigmoid(z) in the two implementations.  Without
+    momentum there is no 2x2 solve, and the loss is held to 1e-4 at every
+    step, alpha to 1e-3 through step 11."""
+    want, _ = _jax_run(setup, method, steps, momentum)
+    opt = _port_opt(setup, method, momentum)
     tr = Trainer(setup["mlp"], opt, TrainConfig(steps=steps, seed=0,
                                                 log_every=10_000),
                  noise=_jax_noise(0), device="cpu")
@@ -434,6 +444,16 @@ def test_trajectory_matches_live_jax(setup, method, steps):
                 if k in want[step]:
                     assert got[step][k] == pytest.approx(
                         want[step][k], rel=1e-3), (step, k)
+    if not momentum:
+        # no 2x2 solve to amplify rounding: over 25 steps the loss stayed
+        # within 1.6e-5 of the reference's, alpha within 1e-4 through step
+        # 11 (7e-4 at step 12, 6e-3 at step 24)
+        for step in range(steps):
+            assert got[step]["loss"] == pytest.approx(want[step]["loss"],
+                                                      rel=1e-4), step
+        for step in range(12):
+            assert got[step]["alpha"] == pytest.approx(want[step]["alpha"],
+                                                       rel=1e-3), step
     # the step-20 gamma sweep picks the same candidate
     assert got[20]["gamma"] == pytest.approx(want[20]["gamma"], rel=1e-6)
     assert want[20]["gamma"] != pytest.approx(want[19]["gamma"], rel=1e-3)
