@@ -81,7 +81,8 @@ on failure (nothing is caught):
             weighs; it is not a phase of this script).
 4. agree    the reduced autoencoder (64-32-16-8 mirrored, N = 256) for 6
             K-FAC steps on the card and on the CPU (plain versions), same
-            weights and uniforms, on each path: losses within rtol 1e-3.
+            weights and uniforms, on each path of phase 5 and on tridiag
+            with the fused chain: losses within rtol 1e-3.
             Reduced smollm-135m, llama3.2-1b and gemma2-2b served on the
             card and on the CPU from the same weights: prefill and paged
             decode logits within 1e-4 * max|cpu logits|, each decode step
@@ -94,12 +95,18 @@ on failure (nothing is caught):
             1e-2) on the card and on the CPU: losses within rtol 1e-3.
 5. main     ``Trainer.fit`` on the full-width 784-1000-500-250-30 mirrored
             autoencoder, N = 8192 full batch, 25 steps (warmup refreshes,
-            T3 refreshes, lambda steps and one gamma sweep), on three paths
+            T3 refreshes, lambda steps and one gamma sweep), on four paths
             (lambda_init = 3, T3 = 5, eta = 1e-5, T1 = 5, T2 = 20):
               blkdiag  ns inverses, the exact-F 2x2 quadratic model;
               eigen    EKFAC: eigh bases, the rotate_rescale apply;
               fused    ns inverses, use_rescale=False: the update_chain
-                       kernel, fixed lr 0.02, momentum 0.9, KL clip 1e-3.
+                       kernel, fixed lr 0.02, momentum 0.9, KL clip 1e-3;
+              tridiag  block-tridiagonal F̂⁻¹ = Ξᵀ Λ Ξ (S4.3): the cross
+                       moments, Ψ/Σ cache (cuSOLVER eigh) and apply as
+                       plain products, the per-layer ns refresh the
+                       reference keeps; the quadratic model as blkdiag's.
+                       No precondition, update_chain or rotate_rescale
+                       launch.
             Launch counters are zeroed just before each path and read just
             after; every kernel of the path must have launched, with the
             counts its schedule implies, and the loss must be finite and
@@ -110,7 +117,8 @@ on failure (nothing is caught):
             at full width: phase 5's autoencoder, weights and data, 25
             steps of ``Trainer.fit`` each of SGD with momentum 0.9 at lr
             0.03, 0.1 and 0.3, Adam at lr 1e-2 and blkdiag K-FAC without
-            momentum; phase 5's blkdiag run is the K-FAC row.  Per row the
+            momentum; phase 5's blkdiag and tridiag runs are the K-FAC
+            rows kfac_blkdiag and kfac_tridiag.  Per row the
             per-step host ms (``timed``), the plain-step median and the
             total, the final loss, peak memory and exact launch counts
             (none for SGD and Adam); then the time to the target, the best
@@ -118,8 +126,8 @@ on failure (nothing is caught):
             its host ms summed through that step; likewise to the best
             first-order row's final loss.  Fails unless every loss
             is finite and K-FAC ends below the best SGD row (the claim of
-            ``examples/autoencoder_kfac.py``); the momentum and Adam
-            orderings are printed, not held.
+            ``examples/autoencoder_kfac.py``); the momentum, Adam and
+            tridiag (at or below blkdiag) orderings are printed, not held.
 6. serve    ``Engine.run`` on full-width llama3.2-1b (16 layers, d 2048,
             vocab 128256, float32 weights from seed 0, bf16 paged KV cache):
             32 greedy requests with prompts of 64-1024 tokens, 64 new
@@ -153,9 +161,11 @@ on failure (nothing is caught):
             loss finite, no kernel launched, plain-step median and peak
             memory.
 7. profile  each autoencoder path twice more: per-stage host times
-            (synchronized), then device time by kernel under
-            ``torch.profiler``; whisper's steps 3 and 4 of another run
-            under ``torch.profiler``, with factor_update's device ms.  The
+            (synchronized; on tridiag also each eigh of the refresh stage,
+            and eigh's share of each refresh step), then device time by
+            kernel under ``torch.profiler``; whisper's steps 3 and 4 of
+            another run under ``torch.profiler``, with factor_update's
+            device ms.  The
             profiles come last, so that no profiled window precedes a
             timed path.
 8. summary  the ``{"main": ...}``, ``{"serve": ...}``, ``{"race": ...}``
@@ -335,7 +345,9 @@ def profile_path(label, mlp, params, data, cfg, steps) -> dict:
     """Where the time goes: one path twice more (after its launch counts
     were read) — once with each pipeline stage timed on the host clock
     between synchronizes, once under ``torch.profiler`` for the device time
-    by kernel and the device busy share."""
+    by kernel and the device busy share.  On the tridiag path the first run
+    also times every ``torch.linalg.eigh`` call (a synchronize on each
+    side) inside the refresh stage: eigh's share of each refresh step."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
@@ -368,6 +380,33 @@ def profile_path(label, mlp, params, data, cfg, steps) -> dict:
         return Stage(stage.name, run)
 
     pipe.stages = [timed(st) for st in pipe.stages]
+    eigh = {"ms": [], "matrices": 0}     # ms: per refresh-stage call
+    real_eigh = torch.linalg.eigh
+
+    def eigh_timed(m, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_eigh(m, *args, **kw)
+        torch.cuda.synchronize()
+        eigh["ms"][-1] += (time.perf_counter() - t0) * 1e3
+        eigh["matrices"] += math.prod(m.shape[:-2])
+        return out
+
+    time_eigh = cfg.inv_mode == "tridiag"
+    if time_eigh:
+        refresh = next(i for i, st in enumerate(pipe.stages)
+                       if st.name == "scheduled_inverse_refresh")
+        inner = pipe.stages[refresh]
+
+        def refresh_run(ctx):
+            eigh["ms"].append(0.0)
+            torch.linalg.eigh = eigh_timed
+            try:
+                inner.run(ctx)
+            finally:
+                torch.linalg.eigh = real_eigh
+
+        pipe.stages[refresh] = Stage(inner.name, refresh_run)
     wall_ms = fit(opt)
     print(f"[profile:{label}] stages, {steps} steps in {wall_ms:.1f} ms "
           f"(host clock, a synchronize around every stage)")
@@ -375,6 +414,20 @@ def profile_path(label, mlp, params, data, cfg, steps) -> dict:
         srt = sorted(v)
         print(f"  stage {name:44s} total {sum(v):9.3f} ms  median "
               f"{srt[len(srt) // 2]:8.3f}  max {srt[-1]:8.3f}")
+    extra = {}
+    if time_eigh:
+        step_ms = [sum(v[i] for v in stage_ms.values())
+                   for i in range(steps)]
+        hit = [i for i, t in enumerate(eigh["ms"]) if t > 0]
+        extra["eigh"] = {
+            "steps": hit, "eigh_ms": [eigh["ms"][i] for i in hit],
+            "step_ms": [step_ms[i] for i in hit],
+            "matrices": eigh["matrices"],
+            "share": sum(eigh["ms"]) / sum(step_ms[i] for i in hit)}
+        print(f"  eigh: {eigh['matrices']} matrices on refresh steps "
+              f"{hit}; ms {[round(eigh['ms'][i], 3) for i in hit]} of "
+              f"steps {[round(step_ms[i], 3) for i in hit]} "
+              f"({extra['eigh']['share']:.1%} of those steps' stage time)")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -384,7 +437,8 @@ def profile_path(label, mlp, params, data, cfg, steps) -> dict:
     busy_ms, _ = device_kernels(prof)
     print(f"  device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "stage_total_ms": {k: sum(v) for k, v in stage_ms.items()}}
+            "stage_total_ms": {k: sum(v) for k, v in stage_ms.items()},
+            **extra}
 
 
 # ---------------------------------------------------------------------------
@@ -1490,7 +1544,7 @@ def profile_serving(label, lm, params, reqs, profile_prefill=False,
 
 
 def ae_paths() -> dict:
-    """The autoencoder's three K-FAC paths (phase 5)."""
+    """The autoencoder's four K-FAC paths (phase 5)."""
     from repro_torch.configs.base import KFACConfig
     base = dict(lambda_init=3.0, t3=5, eta=1e-5)
     return {
@@ -1500,7 +1554,17 @@ def ae_paths() -> dict:
         "fused": KFACConfig(inv_mode="blkdiag", inverse_method="ns",
                             use_rescale=False, fixed_lr=0.02,
                             fixed_momentum=0.9, kl_clip=1e-3, **base),
+        "tridiag": KFACConfig(inv_mode="tridiag", inverse_method="ns",
+                              **base),
     }
+
+
+def agree_paths() -> dict:
+    """Phase 4's paths: phase 5's, and tridiag on the fused chain."""
+    paths = ae_paths()
+    paths["tridiag_fused"] = dataclasses.replace(paths["fused"],
+                                                 inv_mode="tridiag")
+    return paths
 
 
 def ae_model():
@@ -1520,7 +1584,8 @@ def ae_model():
 # schedule of 25 steps: refreshes at steps 0, 1, 2 (warmup), 5, 10, 15 (T3)
 # and the gamma sweep at 20 (3 candidates: batched into the NS launches; one
 # rotate_rescale per candidate and layer in eigen mode; the fused path
-# applies candidate 0 only)
+# applies candidate 0 only; tridiag's per-layer NS refresh is blkdiag's, and
+# its Ξᵀ Λ Ξ apply runs no kernel)
 AE_STEPS, AE_REFRESH, AE_SWEEP, AE_N_REFRESH = 25, (1, 2, 5, 10, 15), 20, 7
 
 
@@ -1528,7 +1593,9 @@ def ae_launches(label: str, steps: int) -> dict:
     """The launch counts of ``steps`` full-width autoencoder steps on one
     K-FAC path.  blkdiag without momentum launches what blkdiag does: the
     momentum tangent enters only the quadratic model, which runs no kernel
-    of ``repro_torch.kernels``."""
+    of ``repro_torch.kernels``.  tridiag launches blkdiag's factor_update
+    and NS refresh and nothing else: its cross moments, Ψ/Σ cache and
+    apply are plain products and cuSOLVER eigh, as in the reference."""
     from repro_torch import kernels as K
     paths = ae_paths()
     zero = {name: 0 for name in K.WRAPPERS}
@@ -1544,7 +1611,9 @@ def ae_launches(label: str, steps: int) -> dict:
             "fused": dict(zero, factor_update=16 * steps, ns_step=ns,
                           precond_momentum=8 * steps,
                           axpy_momentum=8 * steps,
-                          matmul=2 * ns + 8 * steps)}[label]
+                          matmul=2 * ns + 8 * steps),
+            "tridiag": dict(zero, factor_update=16 * steps, ns_step=ns,
+                            matmul=2 * ns)}[label]
 
 
 def fit_timed(opt, mlp, params, data, steps: int, log_every: int = 5):
@@ -1638,12 +1707,13 @@ RACE_BASELINES = [(f"sgd_momentum_lr{lr}", "sgd_momentum",
 RACE_BASELINES.append(("adam_lr0.01", "adam", {"lr": 1e-2}))
 
 
-def race_main(mlp, params, data, kfac_row: dict,
+def race_main(mlp, params, data, kfac_rows: dict,
               steps: int = AE_STEPS) -> dict:
     """The optimizer race at full width (phase "race"): phase 5's model,
     weights and data, ``steps`` steps of each first-order row and of
     blkdiag K-FAC without momentum through ``Trainer.fit`` under ``timed``;
-    ``kfac_row`` is phase 5's blkdiag run (``autoencoder_main``'s dict).
+    ``kfac_rows`` maps the rows ``kfac_blkdiag`` and ``kfac_tridiag`` to
+    phase 5's runs of those paths (``autoencoder_main``'s dicts).
     The time to a target sums the host ms of the steps through the first
     one whose loss (computed in that step's gradient pass, before its
     update) is at or below it.  The race's target is the best SGD row's
@@ -1675,13 +1745,14 @@ def race_main(mlp, params, data, kfac_row: dict,
         if launches != want:
             raise AssertionError(f"race {row}: launch counts {launches}, "
                                  f"expected {want}")
-    rows["kfac_blkdiag"] = {
-        "step_ms": kfac_row["step_ms"],
-        "plain_step_ms_median": kfac_row["plain_step_ms_median"],
-        "total_ms": sum(kfac_row["step_ms"]), "losses": kfac_row["losses"],
-        "final_loss": kfac_row["losses"][-1],
-        "peak_mem_bytes": kfac_row["peak_mem_bytes"],
-        "launches": kfac_row["launches"]}
+    for row, run in kfac_rows.items():
+        rows[row] = {
+            "step_ms": run["step_ms"],
+            "plain_step_ms_median": run["plain_step_ms_median"],
+            "total_ms": sum(run["step_ms"]), "losses": run["losses"],
+            "final_loss": run["losses"][-1],
+            "peak_mem_bytes": run["peak_mem_bytes"],
+            "launches": run["launches"]}
     for row, r in rows.items():
         print(f"  {row}: per-step ms {[round(t, 3) for t in r['step_ms']]}")
         print(f"    plain-step median {r['plain_step_ms_median']:.3f} ms, "
@@ -1715,7 +1786,10 @@ def race_main(mlp, params, data, kfac_row: dict,
                                    < final["kfac_blkdiag_no_momentum"]),
         "no_momentum_below_adam": (final["kfac_blkdiag_no_momentum"]
                                    < final["adam_lr0.01"]),
-        "adam_below_best_sgd": final["adam_lr0.01"] < final[best_sgd]}
+        "adam_below_best_sgd": final["adam_lr0.01"] < final[best_sgd],
+        # examples/autoencoder_kfac.py: tridiag beats blkdiag per iteration
+        "tridiag_at_or_below_blkdiag": (final["kfac_tridiag"]
+                                        <= final["kfac_blkdiag"])}
     print(f"[race] claims (only the first is held): {claims}")
     bad = {row: r["losses"] for row, r in rows.items()
            if not all(math.isfinite(v) for v in r["losses"])}
@@ -2176,7 +2250,7 @@ def main() -> None:
     # ---- 4. agreement with the plain path on a small input -----------
     paths = ae_paths()
     small = autoencoder_dims(reduced())
-    for label, cfg in paths.items():
+    for label, cfg in agree_paths().items():
         hist = {}
         for where in ("cuda", "cpu"):
             mlp = MLP(small, device=where)
@@ -2237,10 +2311,12 @@ def main() -> None:
           f"{time.perf_counter() - t_start:.1f} s")
     # ---- race: first-order baselines against K-FAC at full width ------
     t_race = time.perf_counter()
-    race_out = race_main(mlp, params, data, main_out["blkdiag"], steps)
+    reused = {f"kfac_{label}": main_out[label]
+              for label in ("blkdiag", "tridiag")}
+    race_out = race_main(mlp, params, data, reused, steps)
     race_out["phase_s"] = time.perf_counter() - t_race
     for row, r in race_out["rows"].items():
-        if row != "kfac_blkdiag":          # phase 5's blkdiag run
+        if row not in reused:              # phase 5's runs are counted there
             launches_by_path[f"race_{row}"] = r["launches"]
     print(f"[time] race phase done at "
           f"{time.perf_counter() - t_start:.1f} s")

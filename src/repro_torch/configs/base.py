@@ -114,7 +114,7 @@ class ModelConfig:
 
 # field -> the values this port supports so far
 _PORTED_ONLY = {
-    "inv_mode": ("blkdiag", "eigen"),
+    "inv_mode": ("blkdiag", "tridiag", "eigen"),
     "refresh_mode": ("serial",),
     "fused_stats": (False,),
     "tau1": (1.0,),
@@ -128,6 +128,8 @@ class KFACConfig:
     """The paper's optimizer hyper-parameters (section references in brackets)."""
 
     inv_mode: str = "blkdiag"         # blkdiag                 [S4.2]
+                                      # | tridiag: block-tridiagonal
+                                      # F̂⁻¹ = Ξᵀ Λ Ξ on chain models [S4.3]
                                       # | eigen (EKFAC, 1806.03884): amortized
                                       # factor eigenbases + per-step diagonal
     eigen_decay: float = 0.95         # eigen mode: EMA decay of the

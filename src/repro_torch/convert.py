@@ -47,7 +47,10 @@ def state_from_numpy(state: Mapping[str, Any], device="cuda") -> KFACState:
     factors / inv, and for diag / delta0 the parameters' own tree, an LM's
     with its stacked ``blocks`` tuple; ``vars(jax_state)`` after
     ``jax.tree.map(np.asarray, ...)``) -> the port's :class:`KFACState`.
-    ``staleness`` and ``inv_pending`` default to 0 and None."""
+    A tridiag state's ``factors["__cross__"]`` (a dict) and
+    ``inv["__tri__"]`` (lists of tensors and of dicts, or ``None`` before
+    the first refresh) keep their structure.  ``staleness`` and
+    ``inv_pending`` default to 0 and None."""
     device = resolve_device(device)
     fields = {k: _tree(state[k], device)
               for k in ("step", "k_stats", "lam", "gamma", "factors", "inv",

@@ -14,9 +14,11 @@ on the T3 schedule plus a per-entry diagonal in that basis, split into
 :func:`eigen_rescale`) and ``damp`` (the factored-Tikhonov diagonal
 ``(γ/π)λ_A + πγλ_G + γ²``).  Right after a refresh
 ``s + damp = (λ_A + πγ)(λ_G + γ/π)``, so :func:`apply_eigen` is the ``eigh``
-inverse apply.  The eigendecomposition is ``torch.linalg.eigh``, as the
-reference calls ``jnp.linalg.eigh``; its basis is unique only up to column
-signs (and rotations inside near-degenerate eigenspaces).
+inverse apply.  Every eigendecomposition goes through :func:`eigh`, which
+symmetrizes its input as ``jnp.linalg.eigh`` does by default
+(``torch.linalg.eigh`` reads only the lower triangle); the basis is unique
+only up to column signs (and rotations inside near-degenerate
+eigenspaces).
 
 Everything is batched over leading dims (the LM's stacked layers): ``gamma``
 may be a (c,) tensor of candidates (the S6.6 sweep), which stacks the
@@ -66,8 +68,15 @@ def _add_damp(arr, kind: str, damp):
     return arr + damp[..., None, None] * eye
 
 
+def eigh(m):
+    """``torch.linalg.eigh`` of ``½(M + Mᵀ)``: the reference's
+    ``jnp.linalg.eigh`` symmetrizes its input (``symmetrize_input=True``),
+    while ``torch.linalg.eigh`` would read M's lower triangle alone."""
+    return torch.linalg.eigh((m + m.transpose(-1, -2)) / 2)
+
+
 def eigh_inverse(m, floor: float = 1e-12):
-    w, v = torch.linalg.eigh(m)
+    w, v = eigh(m)
     wi = 1.0 / torch.clamp(w, min=floor)
     return (v * wi[..., None, :]) @ v.transpose(-1, -2)
 
@@ -134,7 +143,7 @@ def damped_pair_inverse(meta: LayerMeta, a, g, gamma, *, method="eigh",
 def eigh_basis(arr):
     """``(q, w)``: the eigenbasis of one factor and its eigenvalues, with
     eigh's tiny negatives clipped to 0 (the factor is PSD)."""
-    w, q = torch.linalg.eigh(arr)
+    w, q = eigh(arr)
     return q, torch.clamp(w, min=0.0)
 
 

@@ -6,14 +6,16 @@ trains full-width whisper-small with K-FAC on the card (``--device cuda``,
 the default; ``--device cpu`` runs the plain PyTorch versions, e.g. with
 ``--reduced``).  ``--optimizer sgd_momentum`` or ``adam`` trains with a
 first-order baseline at ``--lr`` (default 1e-3) instead.  The reference
-launcher's defaults: batch 8, seq 64, λ₀ 10, T3 5, ``inv_mode="blkdiag"``
-with Newton–Schulz inverses.  Weights are the port's own random
-initialization from seed 0; the tokens and mel frames are the reference's
-synthetic streams, bitwise.  The reference's ``--mesh``, ``--ckpt_dir``,
-``--inv_mode``, ``--refresh_mode``, ``--tau1`` and ``--obs*`` options wait
-for their slices, and so does training the decoder-only archs: ``--arch``
-offers whisper-small, the one arch whose training is held against the
-reference.
+launcher's defaults: batch 8, seq 64, λ₀ 10, T3 5, ``--inv_mode blkdiag``
+with Newton–Schulz inverses.  ``--inv_mode tridiag`` runs the
+block-diagonal path on an LM (it has no chain of layers), as the
+reference does; ``--inv_mode eigen`` on an LM is not ported yet and
+raises.  Weights are the port's own random initialization from seed 0; the
+tokens and mel frames are the reference's synthetic streams, bitwise.  The
+reference's ``--mesh``, ``--ckpt_dir``, ``--refresh_mode``, ``--tau1`` and
+``--obs*`` options wait for their slices, and so does training the
+decoder-only archs: ``--arch`` offers whisper-small, the one arch whose
+training is held against the reference.
 """
 from __future__ import annotations
 
@@ -62,12 +64,15 @@ def main(argv=None, log=print, wrap_opt=None):
     ap.add_argument("--lr", type=float, default=1e-3,
                     help="learning rate for the first-order baselines")
     ap.add_argument("--lambda_init", type=float, default=10.0)
+    ap.add_argument("--inv_mode", default="blkdiag",
+                    choices=["blkdiag", "tridiag", "eigen"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
-    kcfg = KFACConfig(lambda_init=args.lambda_init, t3=5)
+    kcfg = KFACConfig(lambda_init=args.lambda_init, inv_mode=args.inv_mode,
+                      t3=5)
     lm = LM(cfg, device=args.device)
     opt = optimizers.get(args.optimizer, lm, kfac_cfg=kcfg,
                          device=args.device, lr=args.lr)

@@ -1,10 +1,13 @@
 """K-FAC as a staged pipeline (paper Algorithm 2); mirrors
-``repro/optimizers/kfac.py`` for ``inv_mode="blkdiag"`` and ``"eigen"``
-(EKFAC) and ``refresh_mode="serial"``, with the exact-F re-scaling
+``repro/optimizers/kfac.py`` for ``inv_mode="blkdiag"``, ``"tridiag"``
+(S4.3, on chain models: ``core/tridiag.py``) and ``"eigen"`` (EKFAC) and
+``refresh_mode="serial"``, with the exact-F re-scaling
 (``use_rescale=True``) or the fused fixed-lr chain (``use_rescale=False``).
 Models: the MLP autoencoders (``core/fisher.py::quad_logits``) and the LM
 (``quad_lm``; trained so far: whisper, blkdiag with the exact-F
-re-scaling).  Parameters are nested trees (the LM's stacked ``blocks``),
+re-scaling; ``inv_mode="tridiag"`` on an LM, which has no
+``layer_order``, runs the block-diagonal path, as in the reference).
+Parameters are nested trees (the LM's stacked ``blocks``),
 each tagged weight addressed by its block's ``param_path``; an untagged
 parameter (a norm scale) gets the reference's diagonal curvature, the
 decayed squared gradient, and is preconditioned by ``g / (diag + λ + η)``.
@@ -16,20 +19,25 @@ over :class:`~repro_torch.core.transform.KFACState`:
                         model-sampled g statistics, then the decayed factor
                         update (S5) through the ``factor_update`` kernel.
   ``refresh_inverses``  every T3 steps (and the first 3): damped inverses
-                        (S4.2/S6.3), or in eigen mode the factor eigenbases
-                        and eigenbasis diagonals; ``refresh_multi`` the three
+                        (S4.2/S6.3) — in tridiag mode the per-layer ones and
+                        the chain's Ψ/Σ cache — or in eigen mode the factor
+                        eigenbases and eigenbasis diagonals;
+                        ``refresh_multi`` the three
                         gamma candidates of the S6.6 sweep, stacked on a
                         leading dim instead of JAX's vmap (eigen mode shares
                         one eigh across them).
   ``rescale_step``      eigen mode, every step but the sweep's: the EKFAC
                         diagonal re-estimated from the gradient.
   ``apply_update``      every step: preconditioning (``precondition`` or, in
-                        eigen mode, ``rotate_rescale`` kernel) with the
-                        exact-F re-scaling + momentum 2x2 solve (S6.4/S7)
-                        and candidate selection by M(delta).
+                        eigen mode, ``rotate_rescale`` kernel; in tridiag
+                        mode the chain's Ξᵀ Λ Ξ apply, plain products) with
+                        the exact-F re-scaling + momentum 2x2 solve
+                        (S6.4/S7) and candidate selection by M(delta).
   ``apply_update_fused`` every step when ``use_rescale=False``: the fixed-lr
                         chain ``D = −lr·Ā⁻¹VḠ⁻¹ + μ·M`` with ``ΣD²`` from the
-                        ``update_chain`` kernel, then the KL and norm clips.
+                        ``update_chain`` kernel (tridiag: the chain's apply,
+                        then ``α·U + μ·M`` elementwise, as in the
+                        reference), then the KL and norm clips.
   ``lambda_step``       every T1 steps: reduction ratio rho + LM rule (S6.5).
 
 :class:`KFACPipeline` schedules them off the step counter, and :func:`kfac`
@@ -56,7 +64,7 @@ from repro_torch.configs.base import KFACConfig
 from repro_torch.core import damping as D
 from repro_torch.core import factors as F
 from repro_torch.core import fisher as FI
-from repro_torch.core.blocks import build_blocks
+from repro_torch.core.blocks import TridiagChain, build_blocks
 from repro_torch.core.transform import KFACState, Optimizer
 from repro_torch.utils import tree as T
 from repro_torch.utils.device import resolve_device
@@ -80,13 +88,19 @@ class KFACEngine:
         self.family = family
         self.metas = model.metas
         self.is_lm = hasattr(model, "hidden")
-        if self.is_lm and (cfg.inv_mode != "blkdiag" or not cfg.use_rescale):
+        # an LM has no layer_order: tridiag runs its block-diagonal path
+        if self.is_lm and (cfg.inv_mode == "eigen" or not cfg.use_rescale):
             raise NotImplementedError(
                 "eigen mode and the fused fixed-lr chain on an LM are not "
-                "ported yet (only inv_mode='blkdiag' with use_rescale=True)")
+                "ported yet (only inv_mode='blkdiag' or 'tridiag' with "
+                "use_rescale=True)")
         self.tagged = {m.param_path for m in self.metas.values()}
         self.blocks = build_blocks(self.metas, cfg, self.device)
         self.eigen = cfg.inv_mode == "eigen"
+        self.tridiag = (cfg.inv_mode == "tridiag"
+                        and hasattr(model, "layer_order"))
+        self.chain = (TridiagChain(model, cfg, self.device) if self.tridiag
+                      else None)
 
     def n_tokens(self, batch) -> int:
         """The global N that normalizes every factor: the batch size, or an
@@ -110,6 +124,12 @@ class KFACEngine:
     def init(self, params, batch) -> KFACState:
         factors = {name: blk.init_factors()
                    for name, blk in self.blocks.items()}
+        inv = {name: (blk.eigen_identity() if self.eigen
+                      else blk.identity_inverse())
+               for name, blk in self.blocks.items()}
+        if self.chain is not None:
+            factors[TridiagChain.CROSS] = self.chain.init_factors()
+            inv[TridiagChain.TRI] = self.chain.identity_inverse()
         # diagonal curvature of the untagged params; the reference keeps an
         # empty placeholder for every tagged one
         diag = T.tree_map_with_path(
@@ -124,9 +144,7 @@ class KFACEngine:
             lam=self._scalar(cfg.lambda_init),
             gamma=self._scalar(math.sqrt(cfg.lambda_init + cfg.eta)),
             factors=factors,
-            inv={name: (blk.eigen_identity() if self.eigen
-                        else blk.identity_inverse())
-                 for name, blk in self.blocks.items()},
+            inv=inv,
             diag=diag,
             delta0=T.tree_map(lambda p: torch.zeros_like(p,
                                                          dtype=torch.float32),
@@ -166,6 +184,10 @@ class KFACEngine:
             name: blk.update_factors(state.factors[name], recs[name],
                                      gprobes.get(name), n, eps)
             for name, blk in self.blocks.items()}
+        if self.chain is not None:
+            cross = TridiagChain.CROSS
+            factors[cross] = self.chain.update_factors(
+                state.factors[cross], recs, gprobes, n, eps)
 
         # diagonal running curvature of the untagged params: squared
         # gradients (the norm scales, well under 1% of an LM's parameters)
@@ -187,11 +209,16 @@ class KFACEngine:
         if self.eigen:
             return {name: blk.eigen_state(factors[name], gamma)
                     for name, blk in self.blocks.items()}
-        return {name: blk.damped_inverse(
-                    factors[name], gamma, method=cfg.inverse_method,
-                    iters=cfg.ns_iters,
-                    prev=None if prev is None else prev.get(name))
-                for name, blk in self.blocks.items()}
+        out = {name: blk.damped_inverse(
+                   factors[name], gamma, method=cfg.inverse_method,
+                   iters=cfg.ns_iters,
+                   prev=None if prev is None else prev.get(name))
+               for name, blk in self.blocks.items()}
+        if self.chain is not None:
+            # the per-layer inverses stay in the state as in the reference,
+            # though the chain's apply reads only its own cache
+            out[TridiagChain.TRI] = self.chain.damped_inverse(factors, gamma)
+        return out
 
     def refresh_inverses(self, state: KFACState, hot: bool = False):
         prev = state.inv if (hot and self.cfg.inverse_method == "ns") else None
@@ -200,9 +227,9 @@ class KFACEngine:
 
     def refresh_multi(self, state: KFACState):
         """Inverses for the 3 gamma candidates (S6.6), stacked on a leading
-        dim of 3 (the reference vmaps over the candidates).  Eigen mode
-        shares one eigendecomposition across the candidates: only the damp
-        diagonal depends on gamma."""
+        dim of 3 (the reference vmaps over the candidates; tridiag's cache
+        too).  Eigen mode shares one eigendecomposition across the
+        candidates: only the damp diagonal depends on gamma."""
         gammas = D.gamma_candidates(state.gamma, self._omega2())
         if self.eigen:
             return gammas, {name: blk.eigen_state_multi(state.factors[name],
@@ -239,6 +266,10 @@ class KFACEngine:
             lambda path, g, d: (g if self._is_tagged(path)
                                 else g / (d + lam_eta)),
             grads_reg, state.diag)
+        if self.chain is not None:
+            for name, u in self._chain_apply(grads_reg, inv).items():
+                out = T.set_path(out, self.metas[name].param_path, u)
+            return T.tree_scale(out, -1.0)
         for name, blk in self.blocks.items():
             path = blk.meta.param_path
             v = T.get_path(grads_reg, path)
@@ -246,6 +277,12 @@ class KFACEngine:
                  else blk.precondition(inv[name], v))
             out = T.set_path(out, path, u)
         return T.tree_scale(out, -1.0)
+
+    def _chain_apply(self, grads_reg, inv):
+        """The tridiagonal ``U = F̂⁻¹ V`` of every chain layer, by name."""
+        vs = {name: T.get_path(grads_reg, self.metas[name].param_path)
+              for name in self.model.layer_order}
+        return self.chain.precondition(inv[TridiagChain.TRI], vs)
 
     # ------------------------------------------------------------------
     # update: precondition fused with rescale + momentum + candidate select
@@ -355,11 +392,20 @@ class KFACEngine:
             return d
 
         vel = T.tree_map_with_path(leaf, grads_reg, state.diag, state.delta0)
+        # tridiag: the chain's apply, then alpha·U + mu·M elementwise with
+        # ΣD² per leaf (no update_chain launch, as in the reference)
+        us = (self._chain_apply(grads_reg, inv) if self.chain is not None
+              else None)
         for name, blk in self.blocks.items():
             path = blk.meta.param_path
-            d, sq = blk.precond_momentum(
-                inv[name], T.get_path(grads_reg, path),
-                T.get_path(state.delta0, path), alpha, mu, eigen=self.eigen)
+            mom = T.get_path(state.delta0, path)
+            if us is None:
+                d, sq = blk.precond_momentum(
+                    inv[name], T.get_path(grads_reg, path), mom, alpha, mu,
+                    eigen=self.eigen)
+            else:
+                d = alpha * us[name].float() + mu * mom
+                sq = torch.sum(d * d)
             sqs.append(sq)
             vel = T.set_path(vel, path, d)
         norm = torch.sqrt(sum(sqs))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions,
-three full-width trainer steps on each path (blkdiag, eigen, fused), a
+three full-width trainer steps on each path (blkdiag, eigen, fused,
+tridiag with the exact-F re-scaling and on the fused chain), a
 reduced llama serving run on each decode route and a reduced gemma2 one.
 No JAX: the machine with the card has none.
 
@@ -14,8 +15,8 @@ Tolerance: max|kernel - plain| <= 1e-4 * max|plain| (fp32 sums over
 K <= 8192 in another order), 1e-4 * max|alpha * XᵀX| for factor_update,
 relative 1e-4 for the update chain's ΣD², and 1e-5 * max|plain| for the
 decode kernels (fp32 sums over <= 8192 keys) and flash_attention; the
-first-order baselines' losses over 6 reduced-autoencoder steps within
-rtol 1e-3 of the CPU's (``chip_smoke.py``'s phase 4); TF32 is off.
+first-order baselines' and tridiag's losses over 6 reduced-autoencoder
+steps within rtol 1e-3 of the CPU's (``chip_smoke.py``'s phase 4); TF32 is off.
 """
 import math
 
@@ -548,6 +549,63 @@ def test_three_full_width_steps_eigen_and_fused(path):
     losses = [h["loss"] for h in out["history"]]
     assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
     assert K.launches() == LAUNCHES[path]
+
+
+TRIDIAG = {
+    "rescale": dict(inv_mode="tridiag", inverse_method="ns",
+                    lambda_init=3.0, t3=5, eta=1e-5),
+    "fused": dict(inv_mode="tridiag", inverse_method="ns", use_rescale=False,
+                  fixed_lr=0.02, fixed_momentum=0.9, kl_clip=1e-3,
+                  lambda_init=3.0, t3=5, eta=1e-5),
+}
+
+
+@pytest.mark.parametrize("path", list(TRIDIAG))
+def test_three_full_width_tridiag_steps(path):
+    """tridiag (S4.3) at full width: every step a warmup refresh, whose
+    per-layer NS inverses run ns_step; the chain's Ξᵀ Λ Ξ apply and its
+    fused branch are plain products, so neither precondition nor the
+    update chain launches."""
+    _card()
+    mlp = MLP(DIMS, device="cuda")
+    params = mlp.init_params(torch.Generator().manual_seed(0))
+    data = SyntheticAutoencoderData(DIMS[0], 8, 8192, seed=7, device="cuda")
+    opt = kfac(mlp, KFACConfig(**TRIDIAG[path]), family="bernoulli",
+               device="cuda")
+    K.reset_launches()
+    out = Trainer(mlp, opt, TrainConfig(seed=0), device="cuda").fit(
+        params, data, steps=3, log=lambda *_: None)
+    losses = [h["loss"] for h in out["history"]]
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    assert K.launches() == dict({k: 0 for k in K.WRAPPERS},
+                                factor_update=48, ns_step=3 * 16 * 12,
+                                matmul=2 * 3 * 16 * 12)
+
+
+@pytest.mark.parametrize("path", list(TRIDIAG))
+def test_tridiag_steps_on_card_match_cpu(path):
+    """6 tridiag steps of the reduced autoencoder on the card and on the
+    CPU from the same weights and uniforms: losses within rtol 1e-3
+    (``chip_smoke.py``'s phase 4)."""
+    _card()
+    dims = autoencoder_dims(reduced())
+    hist = {}
+    for where in ("cuda", "cpu"):
+        mlp = MLP(dims, device=where)
+        params = mlp.init_params(torch.Generator().manual_seed(0))
+        data = SyntheticAutoencoderData(dims[0], 8, 256, seed=7,
+                                        device=where)
+        noise = lambda step, shape, where=where: torch.rand(
+            shape, generator=torch.Generator().manual_seed(step)).to(where)
+        out = Trainer(mlp, kfac(mlp, KFACConfig(**TRIDIAG[path]),
+                                family="bernoulli", device=where),
+                      TrainConfig(seed=0), noise=noise, device=where).fit(
+            params, data, steps=6, log=lambda *_: None)
+        hist[where] = [h["loss"] for h in out["history"]]
+    assert all(math.isfinite(v) for v in hist["cuda"])
+    assert hist["cuda"][-1] < hist["cuda"][0]
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        assert abs(a - b) <= 1e-3 * abs(b), (hist["cuda"], hist["cpu"])
 
 
 @pytest.mark.parametrize("name,lr", [("sgd_momentum", 0.1), ("adam", 1e-2)])
