@@ -113,6 +113,39 @@ on failure (nothing is caught):
             falling.  On the clipped (fused) path the applied clip factor
             nu of every step must lie in (0, 1] and the applied step's norm
             must be finite and above 0; both are printed per step.
+   modes    tau1-subsampled statistics, stats_period, the staggered inverse
+            refresh and the Gaussian loss.  First the kernels in the
+            regimes these send them, each against its plain version
+            (``modes_kernel_rows``): factor_update at tau1 = 1/8's 1024
+            rows of the 16 sides and on strided views x[::8] (timed there:
+            row 2's ``tau1`` case), ``ns_inverse`` hot-started from a stale
+            inverse for 4 iterations, patch_factor on half of whisper's
+            batch (conv1 on the strided view mels[::2]).  Then phase 4's
+            reduced agreement and phase 5's full-width run on each path
+            (the full-width runs after a second blkdiag run, the modes'
+            baseline in the same stretch of the process):
+              tau1               blkdiag, tau1 = 1/8 (statistics on 1024
+                                 of the 8192 rows);
+              stats_period2      blkdiag, the factors on even steps only;
+              staggered          blkdiag, refresh_mode="staggered": after
+                                 the warmup one group of
+                                 ``stagger_groups()`` a step (LPT bins of
+                                 the d³ cost), NS hot at ns_hot_iters = 4;
+              staggered_eigen    eigen, staggered (the group's eigen
+                                 states);
+              staggered_tridiag  tridiag, staggered (its chain cache is
+                                 recomputed only in the warmup and the
+                                 sweep, as in the reference);
+              gaussian           blkdiag, MLP(loss="gaussian") and
+                                 family="gaussian".
+            Exact launch counts (the staggered ns_step counts derived from
+            the engine's groups), the loss finite and falling; printed
+            beside phase 5's runs: the plain-step medians, the staggered
+            paths' largest step after the warmup and stats_period2's steps
+            with and without a statistics pass.  Its whisper run follows
+            the whisper phase, after serving: ``launch/train.py --tau1 0.5
+            --refresh_mode staggered``, 6 steps, patch_factor exactly twice
+            a step on the 4-sequence sub-batch, every launch count exact.
    race     the optimizer race of ``benchmarks/bench_optimizer_race.py``
             at full width: phase 5's autoencoder, weights and data, 25
             steps of ``Trainer.fit`` each of SGD with momentum 0.9 at lr
@@ -168,7 +201,7 @@ on failure (nothing is caught):
             device ms.  The
             profiles come last, so that no profiled window precedes a
             timed path.
-8. summary  the ``{"main": ...}``, ``{"serve": ...}``, ``{"race": ...}``
+8. summary  the ``{"main": ...}`` (the modes' runs under ``modes_*``), ``{"serve": ...}``, ``{"race": ...}``
             and ``{"kernels": [...]}`` lines, the nvidia-smi line, and last
             ``{"ok": true, "device": {...}}``.
 
@@ -1567,6 +1600,62 @@ def agree_paths() -> dict:
     return paths
 
 
+def modes_paths() -> dict:
+    """The modes phase's autoencoder paths, label -> (KFACConfig, loss):
+    phase 5's configurations with one mode each (τ1 = 1/8: statistics on
+    1024 of the 8192 rows)."""
+    paths = ae_paths()
+    rep, blk = dataclasses.replace, paths["blkdiag"]
+    return {
+        "tau1": (rep(blk, tau1=1 / 8), "bernoulli"),
+        "stats_period2": (rep(blk, stats_period=2), "bernoulli"),
+        "staggered": (rep(blk, refresh_mode="staggered"), "bernoulli"),
+        "staggered_eigen": (rep(paths["eigen"], refresh_mode="staggered"),
+                            "bernoulli"),
+        "staggered_tridiag": (rep(paths["tridiag"],
+                                  refresh_mode="staggered"), "bernoulli"),
+        "gaussian": (blk, "gaussian"),
+    }
+
+
+def all_paths() -> dict:
+    """Every full-width autoencoder path, label -> (KFACConfig, loss)."""
+    return {**{label: (cfg, "bernoulli")
+               for label, cfg in ae_paths().items()}, **modes_paths()}
+
+
+def agree_ae(label: str, cfg, loss: str) -> list:
+    """The reduced autoencoder (64-32-16-8 mirrored, N = 256) for 6 K-FAC
+    steps of one path on the card and on the CPU (plain versions), same
+    weights and uniforms: losses within rtol 1e-3."""
+    from repro_torch.configs.autoencoder import reduced
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticAutoencoderData
+    from repro_torch.models.mlp import MLP, autoencoder_dims
+    from repro_torch.optimizers.kfac import kfac
+    from repro_torch.training.trainer import Trainer
+    small = autoencoder_dims(reduced())
+    hist = {}
+    for where in ("cuda", "cpu"):
+        mlp = MLP(small, loss=loss, device=where)
+        params = mlp.init_params(torch.Generator().manual_seed(0))
+        data = SyntheticAutoencoderData(small[0], 8, 256, seed=7,
+                                        device=where)
+        noise = lambda step, shape, where=where: torch.rand(
+            shape, generator=torch.Generator().manual_seed(step)).to(where)
+        tr = Trainer(mlp, kfac(mlp, cfg, family=loss, device=where),
+                     TrainConfig(seed=0, log_every=10 ** 9), noise=noise,
+                     device=where)
+        hist[where] = [h["loss"] for h in tr.fit(
+            params, data, steps=6, log=lambda *_: None)["history"]]
+    print(f"[agree:{label}] reduced autoencoder losses cuda {hist['cuda']}")
+    print(f"        plain versions on the cpu    {hist['cpu']}")
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        if not abs(a - b) <= 1e-3 * abs(b):
+            raise AssertionError(f"{label}: cuda path {a} vs cpu path {b}")
+    return hist["cuda"]
+
+
 def ae_model():
     """The full-width autoencoder, its weights from seed 0 and its N = 8192
     synthetic batch, on the card."""
@@ -1589,31 +1678,62 @@ def ae_model():
 AE_STEPS, AE_REFRESH, AE_SWEEP, AE_N_REFRESH = 25, (1, 2, 5, 10, 15), 20, 7
 
 
+def staggered_ns(cfg, steps: int) -> int:
+    """ns_step launches of ``steps`` staggered steps: every factor side at
+    ``ns_iters`` in the three warmup refreshes and the γ sweeps, and on
+    every other step the two sides of each layer of the engine's group
+    ``step % T3`` (``stagger_groups()``) at ``ns_hot_iters``."""
+    from repro_torch.configs.autoencoder import CONFIG
+    from repro_torch.models.mlp import MLP, autoencoder_dims
+    from repro_torch.optimizers.kfac import KFACEngine
+    groups = KFACEngine(MLP(autoencoder_dims(CONFIG), device="cpu"), cfg,
+                        family="bernoulli", device="cpu").stagger_groups()
+    n = 0
+    for step in range(steps):
+        if step < 3 or step % cfg.t2 == 0:
+            n += 16 * cfg.ns_iters
+        else:
+            n += 2 * len(groups[step % cfg.t3]) * cfg.ns_hot_iters
+    return n
+
+
 def ae_launches(label: str, steps: int) -> dict:
     """The launch counts of ``steps`` full-width autoencoder steps on one
     K-FAC path.  blkdiag without momentum launches what blkdiag does: the
     momentum tangent enters only the quadratic model, which runs no kernel
     of ``repro_torch.kernels``.  tridiag launches blkdiag's factor_update
     and NS refresh and nothing else: its cross moments, Ψ/Σ cache and
-    apply are plain products and cuSOLVER eigh, as in the reference."""
+    apply are plain products and cuSOLVER eigh, as in the reference.
+    The modes: τ1 and the Gaussian loss launch what blkdiag does (the
+    sub-batch changes the rows, not the launches); ``stats_period=2``
+    updates the factors on the even steps only; the staggered paths
+    launch ns_step as ``staggered_ns`` counts (eigen: no ns_step)."""
     from repro_torch import kernels as K
     paths = ae_paths()
     zero = {name: 0 for name in K.WRAPPERS}
     ns = AE_N_REFRESH * 16 * paths["blkdiag"].ns_iters
-    blkdiag = dict(zero, factor_update=16 * steps,
-                   precondition=8 * steps + 2 * 8, ns_step=ns,
-                   matmul=2 * (8 * steps + 2 * 8 + ns))
+    pc = 8 * steps + 2 * 8
+    blkdiag = dict(zero, factor_update=16 * steps, precondition=pc,
+                   ns_step=ns, matmul=2 * (pc + ns))
+    eigen = dict(zero, factor_update=16 * steps, rotate_rescale=pc,
+                 matmul_rescale=pc, matmul=3 * pc)
+    tridiag = dict(zero, factor_update=16 * steps, ns_step=ns,
+                   matmul=2 * ns)
+    if label in ("staggered", "staggered_tridiag"):
+        ns_stag = staggered_ns(modes_paths()[label][0], steps)
+        if label == "staggered":
+            return dict(blkdiag, ns_step=ns_stag, matmul=2 * (pc + ns_stag))
+        return dict(tridiag, ns_step=ns_stag, matmul=2 * ns_stag)
     return {"blkdiag": blkdiag, "blkdiag_no_momentum": blkdiag,
-            "eigen": dict(zero, factor_update=16 * steps,
-                          rotate_rescale=8 * steps + 2 * 8,
-                          matmul_rescale=8 * steps + 2 * 8,
-                          matmul=3 * (8 * steps + 2 * 8)),
+            "tau1": blkdiag, "gaussian": blkdiag,
+            "stats_period2": dict(blkdiag,
+                                  factor_update=16 * len(range(0, steps, 2))),
+            "eigen": eigen, "staggered_eigen": eigen,
             "fused": dict(zero, factor_update=16 * steps, ns_step=ns,
                           precond_momentum=8 * steps,
                           axpy_momentum=8 * steps,
                           matmul=2 * ns + 8 * steps),
-            "tridiag": dict(zero, factor_update=16 * steps, ns_step=ns,
-                            matmul=2 * ns)}[label]
+            "tridiag": tridiag}[label]
 
 
 def fit_timed(opt, mlp, params, data, steps: int, log_every: int = 5):
@@ -1640,31 +1760,37 @@ def fit_timed(opt, mlp, params, data, steps: int, log_every: int = 5):
 
 def autoencoder_main(label: str, steps: int = AE_STEPS, mlp=None,
                      params=None, data=None) -> dict:
-    """``Trainer.fit`` of the full-width autoencoder on one path (phase 5),
-    the launch counters zeroed just before and read just after: exact
-    counts, the loss finite and falling, per-step host times and peak
-    memory.  ``python3 -c 'import chip_smoke as c; c.autoencoder_main(
-    "eigen")'`` runs one path alone, in a process of its own (the A/B of
-    two checkouts)."""
+    """``Trainer.fit`` of the full-width autoencoder on one path (phase 5
+    or the modes phase, ``all_paths()``), the launch counters zeroed just
+    before and read just after: exact counts, the loss finite and falling,
+    per-step host times, the largest step after the warmup but the
+    sweep's, and peak memory.  ``python3 -c 'import chip_smoke as c;
+    c.autoencoder_main("eigen")'`` runs one path alone, in a process of its
+    own (the A/B of two checkouts)."""
+    from repro_torch.models.mlp import MLP
     from repro_torch.optimizers.kfac import kfac
     if mlp is None:
         mlp, params, data = ae_model()
-    cfg = ae_paths()[label]
+    cfg, loss = all_paths()[label]
+    if loss != mlp.loss_kind:
+        mlp = MLP(mlp.dims, loss=loss, device="cuda")
     want = ae_launches(label, steps)
     out, step_ms, launches, peak, resident = fit_timed(
-        kfac(mlp, cfg, family="bernoulli", device="cuda"), mlp, params,
-        data, steps)
+        kfac(mlp, cfg, family=loss, device="cuda"), mlp, params, data,
+        steps)
     losses = [h["loss"] for h in out["history"]]
     srt = sorted(step_ms)
     plain = sorted(t for i, t in enumerate(step_ms)
                    if i not in (0, AE_SWEEP, *AE_REFRESH))
+    after = max(t for i, t in enumerate(step_ms) if i >= 3 and i != AE_SWEEP)
     print(f"[main:{label}] full width {mlp.dims}, N={N_ROWS}, {steps} steps")
     print(f"  per-step ms: {[round(t, 3) for t in step_ms]}")
     print(f"  step ms: median {srt[len(srt) // 2]:.3f}, min {srt[0]:.3f}"
           f", max {srt[-1]:.3f}; plain-step median "
           f"{plain[len(plain) // 2]:.3f}; refresh steps "
           f"{[round(step_ms[i], 3) for i in AE_REFRESH]}; sweep step "
-          f"{step_ms[AE_SWEEP]:.3f}; peak memory "
+          f"{step_ms[AE_SWEEP]:.3f}; largest step after the warmup but the "
+          f"sweep's {after:.3f}; peak memory "
           f"{peak / 2 ** 20:.1f} MiB, of which "
           f"{resident / 2 ** 20:.1f} MiB was allocated before the run")
     print(f"  losses: first {losses[0]:.4f}, last {losses[-1]:.4f}")
@@ -1696,9 +1822,261 @@ def autoencoder_main(label: str, steps: int = AE_STEPS, mlp=None,
         "plain_step_ms_median": plain[len(plain) // 2],
         "refresh_step_ms": {i: step_ms[i] for i in AE_REFRESH},
         "sweep_step_ms": step_ms[AE_SWEEP],
+        "max_step_ms_after_warmup": after,
         "peak_mem_bytes": peak, "resident_bytes_before": resident,
         "losses": losses, "launches": launches,
         **({"nu": nus, "delta_norm": norms} if clipped else {})}
+
+
+TAU1_ROWS = N_ROWS // 8      # the tau1 path's statistics rows
+
+
+def modes_kernel_rows(dev, rows: dict, sides: list) -> None:
+    """The kernels in the regimes the modes send them, each against its
+    plain version as phase 3 holds it (the errors fold into the rows'
+    ``max_abs_err``):
+
+    - factor_update at τ1 = 1/8's 1024 rows of the 16 factor sides, beta 0
+      and 0.95, and on strided views ``x[::8]`` of (8192, d) rows, as the
+      sub-batch's records reach the wrapper; then timed there, row 2's
+      ``cases["tau1"]``, beside ``addmm``;
+    - ``core.inverse.ns_inverse`` hot-started from a stale inverse for 4
+      iterations at each side's damped factor, against the same steps of
+      ``ns_step_ref``: after a small drift (the safeguard holds: hot) and
+      after a decayed update (where the safeguard fails: cold);
+    - patch_factor on half of whisper-small's batch (τ1 = 0.5): conv1 on
+      the strided view ``mels[::2]`` of (8, 3000, 80), conv2 on (4, 3000,
+      768) s 2, N = 4 · 64 tokens."""
+    from repro_torch.core import inverse as INV
+    from repro_torch.kernels.factor_update import (factor_update,
+                                                   factor_update_ref)
+    from repro_torch.kernels.ns_step import cold_start, ns_step_ref
+    from repro_torch.kernels.patch_factor import (patch_factor_update,
+                                                  patch_factor_update_ref)
+    g = torch.Generator(device=dev).manual_seed(28)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    eye = lambda d: torch.eye(d, device=dev)
+
+    def gram(x):
+        return x.T @ x / x.shape[0]
+
+    print(f"[modes:kernels] factor_update at {TAU1_ROWS} rows, ns_step hot "
+          f"from a stale inverse at 4 iterations, patch_factor on half of "
+          f"whisper's batch")
+    errs = {"factor_update": [], "ns_step": [], "patch_factor": []}
+    eps = torch.tensor(0.95, device=dev)
+    xs, cs = [], []
+    for d in sides:
+        full = torch.tanh(randn(N_ROWS, d))
+        c = gram(torch.tanh(randn(512, d))) + 0.1 * eye(d)
+        for label, x in (("", full[:TAU1_ROWS]),
+                         (" strided view x[::8]", full[::8])):
+            for e in (0.0, 0.95):
+                b = torch.tensor(e, device=dev)
+                a = (1 - b) / TAU1_ROWS
+                prod = factor_update_ref(x, c, alpha=a, beta=0.0)
+                compare(f"factor_update X({TAU1_ROWS},{d}){label} beta={e}",
+                        factor_update(x, c, alpha=a, beta=b),
+                        factor_update_ref(x, c, alpha=a, beta=b),
+                        errs["factor_update"],
+                        scale=prod.abs().max().item())
+        if full[::8].is_contiguous():
+            raise AssertionError("the strided view is contiguous")
+        xs.append(full[::8].contiguous())
+        cs.append(c)
+        # the inverse held from before an update: a small drift (the
+        # safeguard ‖I − M X0‖∞ < 1 holds, so NS starts hot; it must) and
+        # one decayed update with a new sub-batch (it may not hold: then
+        # that matrix starts cold, as in the reference)
+        m_old = gram(full) + 0.1 * eye(d)
+        new = gram(torch.tanh(randn(TAU1_ROWS, d))) + 0.1 * eye(d)
+        x0 = torch.linalg.inv(m_old)
+        for drift, m in (("drift 1e-4", m_old + 1e-4 * new),
+                         ("decayed update", 0.95 * m_old + 0.05 * new)):
+            bad = bool(torch.amax(torch.sum(torch.abs(eye(d) - m @ x0),
+                                            dim=-1)) >= 1)
+            if bad and drift == "drift 1e-4":
+                raise AssertionError(f"d={d}: the hot start's safeguard "
+                                     f"fails at a drift of 1e-4")
+            x = cold_start(m) if bad else x0
+            for _ in range(4):
+                x = ns_step_ref(m, x)
+            compare(f"ns_inverse d={d} {drift}, 4 iterations "
+                    f"{'cold: the safeguard failed' if bad else 'hot'}",
+                    INV.ns_inverse(m, 4, x0), 0.5 * (x + x.T),
+                    errs["ns_step"])
+        del full
+    fu = lambda f: [f(x, c, alpha=(1 - eps) / TAU1_ROWS, beta=eps)
+                    for x, c in zip(xs, cs)]
+    case = dict(
+        unit=f"all 16 factor sides of one tau1 = 1/8 stats step, X "
+             f"({TAU1_ROWS}, d)",
+        **timings(lambda: fu(factor_update), lambda: fu(factor_update_ref),
+                  lambda: [torch.addmm(c, x.T, x, beta=0.95,
+                                       alpha=0.05 / TAU1_ROWS)
+                           for x, c in zip(xs, cs)]),
+        bound=bound_ms(float(TAU1_ROWS) * sum(d * (d + 1) for d in sides),
+                       4.0 * sum(TAU1_ROWS * d + 2 * d * d for d in sides)))
+    rows["factor_update"]["cases"]["tau1"] = case
+    print(f"  factor_update tau1 unit: {fmt_ms(case['ms'])} ms, plain "
+          f"{fmt_ms(case['plain_ms'])}, addmm {fmt_ms(case['library_ms'])}, "
+          f"bound {case['bound'][0]:.4f} ({case['bound'][1]}; "
+          f"{case['bound'][0] / case['ms']:.1%} of it)")
+    del xs, cs
+
+    n_tok = 4 * 64
+    mels = randn(8, 3000, 80)
+    for x, c_in, stride in ((mels[::2], 80, 1),
+                            (randn(4, 3000, 768), 768, 2)):
+        d = 3 * c_in + 1
+        kw = dict(taps=3, stride=stride, padding="SAME", has_bias=True)
+        old = gram(torch.tanh(randn(512, d)))
+        prod = patch_factor_update_ref(x, old, alpha=(1 - eps) / n_tok,
+                                       beta=0.0, **kw)
+        compare(f"patch_factor x{tuple(x.shape)} s={stride} contiguous "
+                f"{x.is_contiguous()} beta=0.95",
+                patch_factor_update(x, old, alpha=(1 - eps) / n_tok,
+                                    beta=eps, **kw),
+                patch_factor_update_ref(x, old, alpha=(1 - eps) / n_tok,
+                                        beta=eps, **kw),
+                errs["patch_factor"], scale=prod.abs().max().item())
+    del mels
+    for name, e in errs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], *e)
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def recording(module, name: str, shapes: list):
+    """``module.<name>`` wrapped inside: each call appends its first
+    argument's shape to ``shapes``, then calls the function."""
+    keep = getattr(module, name)
+
+    def wrapped(x, *args, **kw):
+        shapes.append(tuple(x.shape))
+        return keep(x, *args, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, keep)
+
+
+def modes_summary(main_out: dict) -> dict:
+    """What the modes change (printed and recorded, not held): the
+    plain-step medians beside the modes phase's own blkdiag run, the
+    staggered paths' largest step after the warmup (the sweep aside)
+    beside phase 5's T3 refresh steps of their base path, and
+    stats_period=2's step medians with and without a statistics pass."""
+    m = main_out
+    sp = m["modes_stats_period2"]["step_ms"]
+    plain = [i for i in range(AE_STEPS)
+             if i not in (0, AE_SWEEP, *AE_REFRESH)]
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    out = {
+        "plain_step_ms_median": {
+            label: m[key]["plain_step_ms_median"]
+            for label, key in (("blkdiag", "modes_blkdiag"),
+                               ("tau1", "modes_tau1"),
+                               ("gaussian", "modes_gaussian"))},
+        "staggered_max_after_warmup_vs_base_refresh": {
+            label: {"max_step_ms_after_warmup":
+                    m[f"modes_{label}"]["max_step_ms_after_warmup"],
+                    "base_t3_refresh_ms": [m[base]["refresh_step_ms"][i]
+                                           for i in (5, 10, 15)]}
+            for label, base in (("staggered", "blkdiag"),
+                                ("staggered_eigen", "eigen"),
+                                ("staggered_tridiag", "tridiag"))},
+        "stats_period2_step_ms_median": {
+            "with_stats": med([sp[i] for i in plain if i % 2 == 0]),
+            "without_stats": med([sp[i] for i in plain if i % 2 == 1])},
+    }
+    print(f"[modes] {json.dumps(out)}")
+    return out
+
+
+WM_STEPS = 6
+
+
+def whisper_modes(steps: int = WM_STEPS) -> dict:
+    """Full-width whisper-small through ``launch/train.py --tau1 0.5
+    --refresh_mode staggered``: the statistics pass on every other
+    sequence (4 of 8), the warmup's full refreshes at steps 0-2, then one
+    group of ``stagger_groups()`` a step at ``ns_hot_iters``.  patch_factor
+    runs exactly twice a step, each time on the 4-sequence sub-batch (its
+    inputs' shapes are recorded); every launch count exact; per-step host
+    ms and peak memory."""
+    from repro_torch import kernels as K
+    from repro_torch.core.blocks import conv as conv_block
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    K.reset_launches()
+    ms, shapes, held = [], [], {}
+
+    def wrap(opt):
+        held["engine"] = opt.engine
+        return timed(opt, ms)
+
+    t0 = time.perf_counter()
+    with recording(conv_block, "patch_factor_update", shapes):
+        res = train.main(["--arch", "whisper-small", "--steps", str(steps),
+                          "--tau1", "0.5", "--refresh_mode", "staggered"],
+                         log=lambda msg: print(f"  {msg}"), wrap_opt=wrap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launches()
+    peak = torch.cuda.max_memory_allocated()
+    eng = held["engine"]
+    cfg, groups = eng.cfg, eng.stagger_groups()
+    full = {n: (m.a_kind == "full") + (m.g_kind == "full")
+            for n, m in eng.metas.items()}
+    n_full, n_blocks, n_factor_sides = sum(full.values()), 20, 38
+    ns_by_step = [n_full * cfg.ns_iters if i < 3 else
+                  sum(full[n] for n in groups[i % cfg.t3]) * cfg.ns_hot_iters
+                  for i in range(steps)]
+    ns = sum(ns_by_step)
+    want = {name: 0 for name in K.WRAPPERS}
+    want.update(patch_factor=2 * steps, factor_update=n_factor_sides * steps,
+                precondition=n_blocks * steps, ns_step=ns,
+                matmul=2 * (n_blocks * steps + ns))
+    losses = [h["loss"] for h in res["history"]]
+    after = ms[3:]
+    print(f"[modes:whisper] full-width whisper-small, --tau1 0.5 "
+          f"--refresh_mode staggered, batch 8, seq 64, {steps} steps in "
+          f"{wall:.1f} s")
+    print(f"  groups (T3 = {cfg.t3}): {groups}; ns_step launches a step "
+          f"{ns_by_step}")
+    print(f"  per-step ms: {[round(t, 1) for t in ms]}; largest step after "
+          f"the warmup {max(after):.1f} ms; peak memory "
+          f"{peak / 2 ** 20:.1f} MiB, of which {resident / 2 ** 20:.1f} MiB "
+          f"was allocated before")
+    print(f"  patch_factor inputs: {sorted(set(shapes))}")
+    print(f"  losses: {[round(v, 4) for v in losses]}")
+    print(f"  launches: {launches}")
+    if (not all(math.isfinite(v) for v in losses)
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"whisper modes: loss not finite and falling: "
+                             f"{losses}")
+    if len(shapes) != 2 * steps or any(s[0] != 4 for s in shapes):
+        raise AssertionError(f"whisper modes: patch_factor not twice a step "
+                             f"on the 4-sequence sub-batch: {shapes}")
+    if launches != want:
+        raise AssertionError(f"whisper modes: launch counts {launches}, "
+                             f"expected {want}")
+    out = {"steps": steps, "tau1": cfg.tau1, "groups": groups,
+           "ns_step_by_step": ns_by_step, "step_ms": ms,
+           "max_step_ms_after_warmup": max(after),
+           "peak_mem_bytes": peak, "resident_bytes_before": resident,
+           "patch_factor_inputs": sorted(set(shapes)), "losses": losses,
+           "launches": launches, "wall_s": wall}
+    del res
+    torch.cuda.empty_cache()
+    return out
 
 
 # the race's first-order rows: (row, optimizer, its arguments), momentum 0.9
@@ -1882,7 +2260,6 @@ def main() -> None:
                                                   precond_momentum,
                                                   precond_momentum_ref)
     from repro_torch.models.mlp import MLP, autoencoder_dims
-    from repro_torch.optimizers.kfac import kfac
     from repro_torch.training.trainer import Trainer
 
     # ---- 2. build ----------------------------------------------------
@@ -2251,28 +2628,7 @@ def main() -> None:
     paths = ae_paths()
     small = autoencoder_dims(reduced())
     for label, cfg in agree_paths().items():
-        hist = {}
-        for where in ("cuda", "cpu"):
-            mlp = MLP(small, device=where)
-            params = mlp.init_params(torch.Generator().manual_seed(0))
-            data = SyntheticAutoencoderData(small[0], 8, 256, seed=7,
-                                            device=where)
-            noise = lambda step, shape, where=where: torch.rand(
-                shape, generator=torch.Generator().manual_seed(step)).to(
-                    where)
-            tr = Trainer(mlp, kfac(mlp, cfg, family="bernoulli",
-                                   device=where),
-                         TrainConfig(seed=0, log_every=10 ** 9), noise=noise,
-                         device=where)
-            hist[where] = [h["loss"] for h in tr.fit(
-                params, data, steps=6, log=lambda *_: None)["history"]]
-        print(f"[agree:{label}] reduced autoencoder losses cuda "
-              f"{hist['cuda']}")
-        print(f"        plain versions on the cpu    {hist['cpu']}")
-        for a, b in zip(hist["cuda"], hist["cpu"]):
-            if not abs(a - b) <= 1e-3 * abs(b):
-                raise AssertionError(f"{label}: cuda path {a} vs cpu path "
-                                     f"{b}")
+        agree_ae(label, cfg, "bernoulli")
     from repro_torch import optimizers
     for label, lr in (("sgd_momentum", 0.1), ("adam", 1e-2)):
         hist = {}
@@ -2308,6 +2664,19 @@ def main() -> None:
         launches_by_path[label] = main_out[label]["launches"]
 
     print(f"[time] main phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    # ---- modes: τ1, stats_period, staggered refresh, Gaussian loss ----
+    modes_kernel_rows(dev, rows, sides)
+    for label, (cfg, loss) in modes_paths().items():
+        agree_ae(label, cfg, loss)
+    # blkdiag again first: the modes' baseline in the same stretch of the
+    # process (the paths after tridiag's cuSOLVER run read slower)
+    for label in ("blkdiag", *modes_paths()):
+        key = f"modes_{label}"
+        main_out[key] = autoencoder_main(label, steps, mlp, params, data)
+        launches_by_path[key] = main_out[key]["launches"]
+    main_out["modes_summary"] = modes_summary(main_out)
+    print(f"[time] modes phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
     # ---- race: first-order baselines against K-FAC at full width ------
     t_race = time.perf_counter()
@@ -2413,6 +2782,9 @@ def main() -> None:
     launches_by_path["whisper"] = main_out["whisper"]["launches"]
     main_out["whisper_adam"] = whisper_adam()
     launches_by_path["whisper_adam"] = main_out["whisper_adam"]["launches"]
+    # the modes phase's whisper run, after serving as whisper's own
+    main_out["modes_whisper"] = whisper_modes()
+    launches_by_path["modes_whisper"] = main_out["modes_whisper"]["launches"]
     print(f"[time] whisper phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
     # ---- 7. where the time goes --------------------------------------

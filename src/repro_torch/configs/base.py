@@ -115,11 +115,8 @@ class ModelConfig:
 # field -> the values this port supports so far
 _PORTED_ONLY = {
     "inv_mode": ("blkdiag", "tridiag", "eigen"),
-    "refresh_mode": ("serial",),
+    "refresh_mode": ("serial", "staggered"),
     "fused_stats": (False,),
-    "tau1": (1.0,),
-    "tau2": (1.0,),
-    "stats_period": (1,),
 }
 
 
@@ -136,6 +133,8 @@ class KFACConfig:
                                       # eigenbasis second-moment diagonal s
     inverse_method: str = "ns"        # ns | eigh | solve       [S8 / App B]
     ns_iters: int = 12                # Newton-Schulz iterations (cold start)
+    ns_hot_iters: int = 4             # when hot-started from previous inverse
+                                      # (the staggered refresh's subsets)
 
     lambda_init: float = 150.0        # LM damping initial value  [S6.5]
     eta: float = 1e-5                 # l2 regularization coefficient [S13]
@@ -147,7 +146,8 @@ class KFACConfig:
 
     decay_cap: float = 0.95           # epsilon = min(1 - 1/k, cap) [S5]
     tau1: float = 1.0                 # stats subsample fraction  [S8]
-    tau2: float = 1.0                 # exact-F subsample fraction [S8]
+    tau2: float = 1.0                 # exact-F subsample fraction [S8];
+                                      # read by no code, as in the reference
 
     use_momentum: bool = True         # (alpha, mu) from exact-F 2x2 solve [S7]
     use_rescale: bool = True          # exact-F alpha rescale     [S6.4]
@@ -161,7 +161,12 @@ class KFACConfig:
     kl_clip: float = 0.0              # use_rescale=False only: norm-constraint
                                       # max lr²·|Δᵀ∇| per step (0 = off)
     stats_period: int = 1             # update stats every N steps
-    refresh_mode: str = "serial"      # how the T3 inverse refresh is executed
+    staggered_inverse: bool = False   # legacy alias for refresh_mode="staggered"
+    refresh_mode: str = "serial"      # serial | staggered: how the T3 inverse
+                                      # refresh is executed (staggered spreads
+                                      # the blocks over T3 steps in groups
+                                      # from distributed/plan.py); sharded |
+                                      # overlap wait for the distributed slice
 
     def __post_init__(self):
         for name, ok in _PORTED_ONLY.items():

@@ -7,6 +7,7 @@ coefficients need ``δᵢᵀ F δⱼ`` with the exact minibatch Fisher
 
   categorical:  vᵀFv = Σ_tok [ Σ_c p_c ż_c² − (Σ_c p_c ż_c)² ]
   bernoulli:    vᵀFv = Σ     p(1−p) ż²
+  gaussian:     vᵀFv = Σ     ż²            (unit variance: F_R = I)
 
 ``jax.linearize`` becomes one ``torch.func.jvp`` per tangent (forward-mode,
 each repeating the forward pass); :func:`quad_lm` contracts an LM's
@@ -41,6 +42,8 @@ def quad_logits(logits_fn, params, batch, tangents: List, family: str):
         p = torch.sigmoid(z)
         r = p * (1.0 - p)
         q = torch.einsum("no,mno,kno->mk", r, zds, zds)
+    elif family == "gaussian":
+        q = torch.einsum("mno,kno->mk", zds, zds)
     else:
         raise NotImplementedError(f"family {family!r} is not ported yet")
     return q / n

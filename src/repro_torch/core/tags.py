@@ -32,8 +32,11 @@ class LayerMeta:
     d_out: int
     kind: str = "dense"             # dense | conv | embed | head
     n_stack: int = 0                # >0: leading stack dim on weight/factors
+    n_expert: int = 0               # >0: per-expert factors (not ported)
     a_kind: str = "full"            # full | diag | block (not ported)
     g_kind: str = "full"
+    a_blocks: int = 1               # block count when a_kind == "block"
+    g_blocks: int = 1               # (read by the refresh planner's costs)
     has_bias: bool = False          # homogeneous coordinate appended to ā
     # convolution layers (kind == "conv", KFC — 1602.01407): the weight is a
     # (prod(conv_spatial)*conv_in [+1], d_out) matrix over tap-major patch

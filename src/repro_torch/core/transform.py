@@ -56,7 +56,8 @@ class KFACState:
     ``m_delta`` / ``loss_prev``  quadratic-model value and last loss, the
                  inputs to the rho reduction ratio;
     ``staleness`` / ``inv_pending``  the overlap refresh mode's fields;
-                 0 and None in the serial mode, the only one ported.
+                 0 and None in the serial and staggered modes, the
+                 ones ported.
     Scalars are 0-d device tensors.
     """
 

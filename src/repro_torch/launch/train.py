@@ -10,10 +10,14 @@ launcher's defaults: batch 8, seq 64, λ₀ 10, T3 5, ``--inv_mode blkdiag``
 with Newton–Schulz inverses.  ``--inv_mode tridiag`` runs the
 block-diagonal path on an LM (it has no chain of layers), as the
 reference does; ``--inv_mode eigen`` on an LM is not ported yet and
-raises.  Weights are the port's own random initialization from seed 0; the
-tokens and mel frames are the reference's synthetic streams, bitwise.  The
-reference's ``--mesh``, ``--ckpt_dir``, ``--refresh_mode``, ``--tau1`` and
-``--obs*`` options wait for their slices, and so does training the
+raises.  ``--refresh_mode staggered`` spreads the T3 inverse refresh over
+T3 steps in cost-balanced groups, and ``--tau1`` (default 1.0) computes the
+factor statistics on every round(1/τ1)-th sequence of the batch; the
+reference's ``sharded`` and ``overlap`` refresh modes wait for the
+distributed slice.  Weights are the port's own random initialization from
+seed 0; the tokens and mel frames are the reference's synthetic streams,
+bitwise.  The reference's ``--mesh``, ``--ckpt_dir`` and ``--obs*``
+options wait for their slices, and so does training the
 decoder-only archs: ``--arch`` offers whisper-small, the one arch whose
 training is held against the reference.
 """
@@ -66,13 +70,20 @@ def main(argv=None, log=print, wrap_opt=None):
     ap.add_argument("--lambda_init", type=float, default=10.0)
     ap.add_argument("--inv_mode", default="blkdiag",
                     choices=["blkdiag", "tridiag", "eigen"])
+    ap.add_argument("--refresh_mode", default="serial",
+                    choices=["serial", "staggered"],
+                    help="how the T3 inverse refresh executes: serially, "
+                         "or staggered over T3 steps (sharded and overlap "
+                         "wait for the distributed slice)")
+    ap.add_argument("--tau1", type=float, default=1.0,
+                    help="fraction of the batch the statistics pass reads")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
     kcfg = KFACConfig(lambda_init=args.lambda_init, inv_mode=args.inv_mode,
-                      t3=5)
+                      refresh_mode=args.refresh_mode, tau1=args.tau1, t3=5)
     lm = LM(cfg, device=args.device)
     opt = optimizers.get(args.optimizer, lm, kfac_cfg=kcfg,
                          device=args.device, lr=args.lr)

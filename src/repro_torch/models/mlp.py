@@ -2,14 +2,17 @@
 
 Mirrors ``repro/models/mlp.py``: homogeneous coordinates (``ā = [a; 1]`` so
 the bias is the last row of each W), tanh units, Bernoulli (cross-entropy)
-reconstruction loss.  Parameters are a plain dict ``{"W0": (d_in+1, d_out),
-...}`` exactly as in JAX, so ``torch.func.jvp`` works on them directly and
-the tests compare like with like.
+or Gaussian (squared-error) reconstruction loss.  Parameters are a plain
+dict ``{"W0": (d_in+1, d_out), ...}`` exactly as in JAX, so
+``torch.func.jvp`` works on them directly and the tests compare like with
+like.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.autoencoder import AutoencoderConfig
@@ -18,6 +21,21 @@ from repro_torch.utils.device import resolve_device
 
 # (shape) -> float32 uniforms in [0, 1) on the model's device
 Uniforms = Callable[[tuple], torch.Tensor]
+
+LOSSES = ("bernoulli", "gaussian")
+# jax.random.normal's lower bound: the float32 next to -1 toward 0
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal_from_uniforms(u: torch.Tensor) -> torch.Tensor:
+    """Standard normals from uniforms in [0, 1), mapped as
+    ``jax.random.normal`` maps the uniforms it draws: ``u`` onto [lo, 1)
+    with lo = nextafter(−1, 0) in float32, then ``√2 · erfinv``.  So JAX's
+    uniforms of a key give (to erfinv's rounding) its normals of that
+    key."""
+    v = torch.clamp(u.float() * (1.0 - _NORMAL_LO) + _NORMAL_LO,
+                    min=_NORMAL_LO)
+    return math.sqrt(2.0) * torch.erfinv(v)
 
 
 def autoencoder_dims(cfg: AutoencoderConfig) -> List[int]:
@@ -30,8 +48,9 @@ class MLP:
 
     def __init__(self, dims: List[int], nonlin: str = "tanh",
                  loss: str = "bernoulli", device="cuda"):
-        if loss != "bernoulli":
-            raise NotImplementedError(f"loss {loss!r} is not ported yet")
+        if loss not in LOSSES:
+            raise ValueError(f"unknown loss {loss!r} (expected "
+                             f"{' or '.join(LOSSES)})")
         self.dims = list(dims)
         self.n_layers = len(dims) - 1
         self.nonlin = {"tanh": torch.tanh, "relu": torch.relu}[nonlin]
@@ -81,15 +100,21 @@ class MLP:
         return a
 
     def _nll(self, z, y):
-        # - sum_j [ y log sigmoid(z) + (1-y) log(1 - sigmoid(z)) ]
-        return torch.sum(torch.logaddexp(torch.zeros_like(z), z) - y * z,
-                         dim=-1)
+        if self.loss_kind == "bernoulli":
+            # - sum_j [ y log sigmoid(z) + (1-y) log(1 - sigmoid(z)) ]
+            return torch.sum(torch.logaddexp(torch.zeros_like(z), z) - y * z,
+                             dim=-1)
+        return 0.5 * torch.sum((z - y) ** 2, dim=-1)      # gaussian
 
     def sample_targets(self, z, uniforms: Uniforms):
-        """Bernoulli draws ``u < sigmoid(z)``: ``jax.random.bernoulli`` is
-        ``uniform(key) < p``, so feeding JAX's uniforms reproduces its
-        samples."""
-        return (uniforms(tuple(z.shape)) < torch.sigmoid(z)).to(z.dtype)
+        """Bernoulli draws ``u < sigmoid(z)`` (``jax.random.bernoulli`` is
+        ``uniform(key) < p``), or Gaussian ones ``z + n`` with ``n`` the
+        normals of the same uniforms (:func:`normal_from_uniforms`); so
+        feeding JAX's uniforms reproduces its samples."""
+        u = uniforms(tuple(z.shape))
+        if self.loss_kind == "bernoulli":
+            return (u < torch.sigmoid(z)).to(z.dtype)
+        return z + normal_from_uniforms(u).to(z.dtype)
 
     def loss(self, params, probes, batch, rng: Optional[Uniforms],
              mode: str = "plain"):

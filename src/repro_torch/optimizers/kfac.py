@@ -1,9 +1,12 @@
 """K-FAC as a staged pipeline (paper Algorithm 2); mirrors
 ``repro/optimizers/kfac.py`` for ``inv_mode="blkdiag"``, ``"tridiag"``
-(S4.3, on chain models: ``core/tridiag.py``) and ``"eigen"`` (EKFAC) and
-``refresh_mode="serial"``, with the exact-F re-scaling
-(``use_rescale=True``) or the fused fixed-lr chain (``use_rescale=False``).
-Models: the MLP autoencoders (``core/fisher.py::quad_logits``) and the LM
+(S4.3, on chain models: ``core/tridiag.py``) and ``"eigen"`` (EKFAC),
+``refresh_mode="serial"`` or ``"staggered"`` (the legacy
+``staggered_inverse=True`` too), τ1-subsampled statistics and
+``stats_period``, with the exact-F re-scaling (``use_rescale=True``) or the
+fused fixed-lr chain (``use_rescale=False``).
+Models: the MLP autoencoders, Bernoulli or Gaussian
+(``core/fisher.py::quad_logits``), and the LM
 (``quad_lm``; trained so far: whisper, blkdiag with the exact-F
 re-scaling; ``inv_mode="tridiag"`` on an LM, which has no
 ``layer_order``, runs the block-diagonal path, as in the reference).
@@ -15,9 +18,13 @@ decayed squared gradient, and is preconditioned by ``g / (diag + λ + η)``.
 :class:`KFACEngine` holds the stage functions, each a ``state -> state`` map
 over :class:`~repro_torch.core.transform.KFACState`:
 
-  ``stats_grads``       every step: gradients on the true labels, then the
-                        model-sampled g statistics, then the decayed factor
-                        update (S5) through the ``factor_update`` kernel.
+  ``stats_grads``       every ``stats_period``-th step: gradients on the
+                        true labels, then the model-sampled g statistics on
+                        the τ1 sub-batch (``_sub_batch``: every
+                        round(1/τ1)-th row), then the decayed factor update
+                        (S5) through the ``factor_update`` kernel.
+  ``grads_only``        the other steps: the gradient pass alone; factors,
+                        diagonals and ``k_stats`` stay as they were.
   ``refresh_inverses``  every T3 steps (and the first 3): damped inverses
                         (S4.2/S6.3) — in tridiag mode the per-layer ones and
                         the chain's Ψ/Σ cache — or in eigen mode the factor
@@ -26,6 +33,14 @@ over :class:`~repro_torch.core.transform.KFACState`:
                         gamma candidates of the S6.6 sweep, stacked on a
                         leading dim instead of JAX's vmap (eigen mode shares
                         one eigh across them).
+  ``refresh_subset``    staggered mode, every step after the warmup but the
+                        sweep's: one group of ``stagger_groups()`` (LPT
+                        bins of the d³ cost, ``distributed/plan.py``), NS
+                        hot-started from the held inverses for
+                        ``ns_hot_iters`` iterations (eigen: their eigen
+                        states).  tridiag's Ψ/Σ cache is not in any group,
+                        so under this mode it is recomputed only in the
+                        warmup and at γ sweeps, as in the reference.
   ``rescale_step``      eigen mode, every step but the sweep's: the EKFAC
                         diagonal re-estimated from the gradient.
   ``apply_update``      every step: preconditioning (``precondition`` or, in
@@ -49,8 +64,10 @@ host, as the reference does.
 Random numbers: JAX's stats pass draws its targets from
 ``fold_in(rng, 1)``.  Here ``rng`` is a callable ``shape -> uniforms`` that
 already stands for that stream (the trainer builds it from its ``noise``),
-and only the stats pass draws from it (the LM's head turns the uniforms
-into Gumbel noise, ``models/head.py``).
+and only the stats pass draws from it, at the sub-batch's shape (the LM's
+head turns the uniforms into Gumbel noise, ``models/head.py``; the Gaussian
+MLP into normals, ``models/mlp.py``).  ``tau2`` is read by no code, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -66,6 +83,7 @@ from repro_torch.core import factors as F
 from repro_torch.core import fisher as FI
 from repro_torch.core.blocks import TridiagChain, build_blocks
 from repro_torch.core.transform import KFACState, Optimizer
+from repro_torch.distributed.plan import build_plan
 from repro_torch.utils import tree as T
 from repro_torch.utils.device import resolve_device
 
@@ -83,6 +101,15 @@ class KFACEngine:
     def __init__(self, model, cfg: KFACConfig, family: str = "categorical",
                  device="cuda"):
         self.device = resolve_device(device)
+        # legacy knob: staggered_inverse=True asked for the round-robin
+        # refresh before refresh_mode existed
+        self.refresh_mode = ("staggered"
+                             if cfg.refresh_mode == "serial"
+                             and cfg.staggered_inverse
+                             else cfg.refresh_mode)
+        if self.refresh_mode not in ("serial", "staggered"):
+            raise ValueError(f"unknown refresh_mode {cfg.refresh_mode!r} "
+                             "(expected 'serial' or 'staggered')")
         self.model = model
         self.cfg = cfg
         self.family = family
@@ -156,23 +183,37 @@ class KFACEngine:
         )
 
     # ------------------------------------------------------------------
-    # stats + grads: a full-batch gradient pass, plus a model-sampled-target
-    # pass for the factor statistics that differentiates only w.r.t. the
-    # probes (parameters detached), so its backward does no dW products.
+    # stats + grads: a full-batch gradient pass, plus a τ1-subsampled
+    # model-sampled-target pass for the factor statistics that
+    # differentiates only w.r.t. the probes (parameters detached), so its
+    # backward does no dW products.
     # ------------------------------------------------------------------
-    def stats_grads(self, state: KFACState, params, batch, rng):
-        # ---- pass 1: gradients on the full batch (plain mode) ----
+    def _sub_batch(self, batch):
+        """Every round(1/τ1)-th row of every batch leaf (dim 0), as views;
+        the kernels' wrappers copy what they read to contiguous memory."""
+        stride = max(1, round(1.0 / self.cfg.tau1))
+        if stride == 1:
+            return batch
+        return T.tree_map(lambda x: x[::stride], batch)
+
+    def _grads(self, params, batch):
+        """The gradient pass on the full batch (plain mode): (loss, grads)."""
         p1 = T.tree_map(lambda v: v.detach().requires_grad_(True), params)
         (lt, _), _ = self.model.loss(p1, None, batch, None, mode="plain")
         grads = T.tree_unflatten_like(params, torch.autograd.grad(
             lt, T.tree_leaves(p1)))
-        lt = lt.detach()
+        return lt.detach(), grads
 
-        # ---- pass 2: statistics with sampled targets ----
-        probes = self._probes(batch)
-        n = self.n_tokens(batch)
+    def stats_grads(self, state: KFACState, params, batch, rng):
+        # ---- pass 1: gradients on the full batch (plain mode) ----
+        lt, grads = self._grads(params, batch)
+
+        # ---- pass 2: τ1-subsampled statistics with sampled targets ----
+        sub = self._sub_batch(batch)
+        probes = self._probes(sub)
+        n = self.n_tokens(sub)
         frozen = T.tree_map(torch.Tensor.detach, params)
-        (_, ls), aux = self.model.loss(frozen, probes, batch, rng,
+        (_, ls), aux = self.model.loss(frozen, probes, sub, rng,
                                        mode="collect")
         gprobes = dict(zip(probes, torch.autograd.grad(
             ls, list(probes.values()))))
@@ -201,6 +242,13 @@ class KFACEngine:
                               loss_prev=lt)
         return state, grads, {"loss": lt, "loss_sampled": ls.detach()}
 
+    def grads_only(self, state: KFACState, params, batch, rng):
+        """The gradient pass without the statistics pass (the steps that
+        ``stats_period`` skips): no target is drawn, and the factors,
+        diagonals and ``k_stats`` stay as they were."""
+        lt, grads = self._grads(params, batch)
+        return state.replace(loss_prev=lt), grads, {"loss": lt}
+
     # ------------------------------------------------------------------
     # inverses
     # ------------------------------------------------------------------
@@ -224,6 +272,33 @@ class KFACEngine:
         prev = state.inv if (hot and self.cfg.inverse_method == "ns") else None
         return state.replace(inv=self._inverses_for(state.factors,
                                                     state.gamma, prev))
+
+    def refresh_subset(self, state: KFACState, names, hot: bool = True):
+        """Staggered refresh: recompute only the named layer blocks, the
+        others' inverses (and tridiag's chain cache) kept as they are.  NS
+        hot-starts from the held inverses for ``ns_hot_iters`` iterations;
+        eigen mode recomputes the blocks' eigen states."""
+        cfg = self.cfg
+        inv = dict(state.inv)
+        if self.eigen:
+            for name in names:
+                inv[name] = self.blocks[name].eigen_state(
+                    state.factors[name], state.gamma)
+            return state.replace(inv=inv)
+        prev = state.inv if cfg.inverse_method == "ns" and hot else None
+        for name in names:
+            inv[name] = self.blocks[name].damped_inverse(
+                state.factors[name], state.gamma,
+                method=cfg.inverse_method,
+                iters=cfg.ns_hot_iters if hot else cfg.ns_iters,
+                prev=None if prev is None else prev.get(name))
+        return state.replace(inv=inv)
+
+    def stagger_groups(self) -> List[List[str]]:
+        """The layer names in T3 staggered-refresh groups, bin-packed by the
+        d³ inversion cost model (``distributed/plan.py``), so each step's
+        share of the refresh work is even."""
+        return build_plan(self.blocks, max(1, self.cfg.t3)).groups()
 
     def refresh_multi(self, state: KFACState):
         """Inverses for the 3 gamma candidates (S6.6), stacked on a leading
@@ -488,6 +563,9 @@ class KFACPipeline:
     def __init__(self, engine: KFACEngine):
         self.engine = engine
         self._start: Optional[int] = None
+        # staggered mode: the blocks of each of the T3 refresh groups
+        self._groups = (engine.stagger_groups()
+                        if engine.refresh_mode == "staggered" else None)
         if engine.cfg.use_rescale:
             # precondition is fused into the quadratic-model stage: the
             # M(delta) solve needs every candidate's preconditioned delta
@@ -516,8 +594,12 @@ class KFACPipeline:
                 "kfac computes its own gradients (the statistics pass "
                 "shares the forward with the gradient pass) — call "
                 "update(None, state, params, batch, rng)")
-        ctx.state, ctx.grads, metrics = self.engine.stats_grads(
-            ctx.state, ctx.params, ctx.batch, ctx.rng)
+        if ctx.step % self.engine.cfg.stats_period == 0:
+            stage = self.engine.stats_grads
+        else:
+            stage = self.engine.grads_only     # stats skipped this step
+        ctx.state, ctx.grads, metrics = stage(ctx.state, ctx.params,
+                                              ctx.batch, ctx.rng)
         ctx.metrics.update(metrics)
 
     def _stage_refresh(self, ctx: StepContext):
@@ -526,6 +608,10 @@ class KFACPipeline:
             # gamma sweep (S6.6): stacked candidate inverses; selection
             # happens inside the quadratic-model stage
             ctx.candidates = self.engine.refresh_multi(ctx.state)
+        elif self._groups is not None and not ctx.warmup:
+            # staggered: one group of blocks a step, balanced by d³ cost
+            ctx.state = self.engine.refresh_subset(
+                ctx.state, self._groups[ctx.step % cfg.t3])
         elif ctx.warmup or ctx.step % cfg.t3 == 0:
             ctx.state = self.engine.refresh_inverses(ctx.state, hot=True)
 

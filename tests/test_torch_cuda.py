@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions,
 three full-width trainer steps on each path (blkdiag, eigen, fused,
-tridiag with the exact-F re-scaling and on the fused chain), a
+tridiag with the exact-F re-scaling and on the fused chain; the
+staggered refresh's three steps after its warmup), a
 reduced llama serving run on each decode route and a reduced gemma2 one.
 No JAX: the machine with the card has none.
 
@@ -15,8 +16,10 @@ Tolerance: max|kernel - plain| <= 1e-4 * max|plain| (fp32 sums over
 K <= 8192 in another order), 1e-4 * max|alpha * XᵀX| for factor_update,
 relative 1e-4 for the update chain's ΣD², and 1e-5 * max|plain| for the
 decode kernels (fp32 sums over <= 8192 keys) and flash_attention; the
-first-order baselines' and tridiag's losses over 6 reduced-autoencoder
-steps within rtol 1e-3 of the CPU's (``chip_smoke.py``'s phase 4); TF32 is off.
+first-order baselines', tridiag's and the modes' (τ1, stats_period, the
+staggered refresh, the Gaussian loss) losses over 6 reduced-autoencoder
+steps within rtol 1e-3 of the CPU's (``chip_smoke.py``'s phases 4 and
+"modes"); TF32 is off.
 """
 import math
 
@@ -599,6 +602,92 @@ def test_tridiag_steps_on_card_match_cpu(path):
             shape, generator=torch.Generator().manual_seed(step)).to(where)
         out = Trainer(mlp, kfac(mlp, KFACConfig(**TRIDIAG[path]),
                                 family="bernoulli", device=where),
+                      TrainConfig(seed=0), noise=noise, device=where).fit(
+            params, data, steps=6, log=lambda *_: None)
+        hist[where] = [h["loss"] for h in out["history"]]
+    assert all(math.isfinite(v) for v in hist["cuda"])
+    assert hist["cuda"][-1] < hist["cuda"][0]
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        assert abs(a - b) <= 1e-3 * abs(b), (hist["cuda"], hist["cpu"])
+
+
+@pytest.mark.parametrize("d", [785, 1001])
+def test_factor_update_tau1_rows_on_card(d):
+    """τ1 = 1/8 of the full batch: 1024 rows, as a contiguous block and as
+    the strided view ``x[::8]`` the sub-batch's records are (the wrapper
+    copies it), at beta 0 and 0.95."""
+    g = _card()
+    full = torch.tanh(torch.randn(8192, d, generator=g, device="cuda"))
+    c = _spd(g, d)
+    assert not full[::8].is_contiguous()
+    for x in (full[:1024], full[::8]):
+        for e in (0.0, 0.95):
+            eps = torch.tensor(e, device="cuda")
+            _factor_close(x, c, (1 - eps) / 1024, eps)
+
+
+def _staggered_launches(opt, steps):
+    """blkdiag's launches over ``steps`` staggered steps: full refreshes
+    in the warmup (steps 0-2), then one group of ``stagger_groups()`` a
+    step at ``ns_hot_iters``, two sides a layer."""
+    cfg, groups = opt.engine.cfg, opt.engine.stagger_groups()
+    ns = sum(16 * cfg.ns_iters if i < 3 else
+             2 * len(groups[i % cfg.t3]) * cfg.ns_hot_iters
+             for i in range(steps))
+    return dict({k: 0 for k in K.WRAPPERS}, factor_update=16 * steps,
+                precondition=8 * steps, ns_step=ns,
+                matmul=2 * (8 * steps + ns))
+
+
+def test_three_full_width_staggered_steps():
+    """The staggered refresh at full width: three warmup steps, then three
+    steps each refreshing one group (steps 3, 4, 5: groups 3, 4 and 0 of
+    the d³ bins) with NS hot at 4 iterations; exact launch counts."""
+    _card()
+    mlp = MLP(DIMS, device="cuda")
+    params = mlp.init_params(torch.Generator().manual_seed(0))
+    data = SyntheticAutoencoderData(DIMS[0], 8, 8192, seed=7, device="cuda")
+    opt = kfac(mlp, KFACConfig(inverse_method="ns", lambda_init=3.0, t3=5,
+                               eta=1e-5, refresh_mode="staggered"),
+               family="bernoulli", device="cuda")
+    K.reset_launches()
+    out = Trainer(mlp, opt, TrainConfig(seed=0), device="cuda").fit(
+        params, data, steps=6, log=lambda *_: None)
+    losses = [h["loss"] for h in out["history"]]
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    want = _staggered_launches(opt, 6)
+    assert want["ns_step"] == 3 * 16 * 12 + (2 + 8 + 2) * 4
+    assert K.launches() == want
+
+
+MODES = {
+    "tau1": (dict(inverse_method="ns", tau1=0.125), "bernoulli"),
+    "stats_period2": (dict(inverse_method="ns", stats_period=2),
+                      "bernoulli"),
+    "staggered": (dict(inverse_method="ns", refresh_mode="staggered"),
+                  "bernoulli"),
+    "gaussian": (dict(inverse_method="ns"), "gaussian"),
+}
+
+
+@pytest.mark.parametrize("path", list(MODES))
+def test_mode_steps_on_card_match_cpu(path):
+    """6 reduced-autoencoder steps of each mode on the card and on the CPU
+    from the same weights and uniforms: losses within rtol 1e-3
+    (``chip_smoke.py``'s modes phase)."""
+    _card()
+    kw, loss = MODES[path]
+    cfg = KFACConfig(lambda_init=3.0, t3=5, eta=1e-5, **kw)
+    dims = autoencoder_dims(reduced())
+    hist = {}
+    for where in ("cuda", "cpu"):
+        mlp = MLP(dims, loss=loss, device=where)
+        params = mlp.init_params(torch.Generator().manual_seed(0))
+        data = SyntheticAutoencoderData(dims[0], 8, 256, seed=7,
+                                        device=where)
+        noise = lambda step, shape, where=where: torch.rand(
+            shape, generator=torch.Generator().manual_seed(step)).to(where)
+        out = Trainer(mlp, kfac(mlp, cfg, family=loss, device=where),
                       TrainConfig(seed=0), noise=noise, device=where).fit(
             params, data, steps=6, log=lambda *_: None)
         hist[where] = [h["loss"] for h in out["history"]]
