@@ -161,6 +161,39 @@ on failure (nothing is caught):
             is finite and K-FAC ends below the best SGD row (the claim of
             ``examples/autoencoder_kfac.py``); the momentum, Adam and
             tridiag (at or below blkdiag) orderings are printed, not held.
+   ckpt     checkpoints, resume, preemption and the curvature bundle, each
+            in a ``tempfile.mkdtemp()`` directory (its disk usage printed
+            first, removed after).  On phase 5's four paths with its
+            model, weights and data: ``Trainer.fit`` to step 7 with an
+            asynchronous ``Checkpointer`` (``checkpoint_every=7``; on
+            blkdiag and eigen also ``curvature_every=7``), then a new
+            optimizer and trainer resume from step 7 to 12.  Held: every
+            array of ``arrays.npz`` bitwise a host copy taken at the save;
+            steps 0-6 and the resumed first loss bitwise phase 5's; exact
+            launch counts of both runs, the resumed one's with its warmup
+            re-armed at step 7 (``ae_launches``: refreshes at 7, 8,
+            9 and 10); finite losses; the checkpoint restored into a CPU
+            template bitwise (tridiag's Ψ/Σ cache None, as in the
+            reference); on blkdiag a second resume bitwise the first.  The
+            bundle: on eigen its qa / qg / s / damp bitwise the state's
+            ``inv``, and a bfloat16 bundle's bases bitwise
+            ``q.to(torch.bfloat16).float()``; on blkdiag the rotate_rescale
+            apply of the loaded bundle against the precondition kernel on
+            the eigh-damped inverses of the same factors and γ, within
+            min(5e-6·κ, 2e-3)·max|U| (κ = max/min of s + damp).
+            Preemption once on blkdiag: SIGTERM while step 3's batch is
+            built; ``fit`` stops after step 3 with a committed
+            ``step_00000004``, and the SIGTERM handler is afterwards what
+            it was before.  Printed:
+            bytes, the save's blocking host-copy ms and its write seconds
+            on the thread, the restore's read and to-device seconds, the
+            bundle's snapshot ms and write seconds.  whisper: the whisper
+            phase's 10-step run goes through ``--ckpt_dir`` (its checkpoint
+            after step 10, outside the step times; the free disk checked
+            against the checkpoint's bytes from the metas first), then a
+            relaunch with ``--steps 12`` resumes at step 10 and runs two
+            steps (both warmup refreshes) with exact launch counts and a
+            finite loss, the device's peak during the restore printed.
 6. serve    ``Engine.run`` on full-width llama3.2-1b (16 layers, d 2048,
             vocab 128256, float32 weights from seed 0, bf16 paged KV cache):
             32 greedy requests with prompts of 64-1024 tokens, 64 new
@@ -201,7 +234,8 @@ on failure (nothing is caught):
             device ms.  The
             profiles come last, so that no profiled window precedes a
             timed path.
-8. summary  the ``{"main": ...}`` (the modes' runs under ``modes_*``), ``{"serve": ...}``, ``{"race": ...}``
+8. summary  the ``{"main": ...}`` (the modes' runs under ``modes_*``, the
+            ckpt phase's under ``ckpt_*``), ``{"serve": ...}``, ``{"race": ...}``
             and ``{"kernels": [...]}`` lines, the nvidia-smi line, and last
             ``{"ok": true, "device": {...}}``.
 
@@ -1226,18 +1260,34 @@ def agree_whisper(steps: int = 4) -> list:
 W_STEPS = 10
 
 
-def whisper_main(steps: int) -> dict:
+def whisper_launches(steps: int, n_refresh: int) -> dict:
+    """The launch counts of ``steps`` launcher steps of full-width
+    whisper-small, ``n_refresh`` of them refreshes.  Each stats step
+    launches patch_factor twice (conv1, conv2), factor_update on both sides
+    of the 18 stacked dense layers and on the conv stems' G sides (38) and
+    precondition on the 20 Kronecker blocks; each refresh ns_step on the 42
+    full factors times 12 iterations (the embedding's G, the head's Ā:
+    their diagonal sides take no kernel), each ns_step and precondition
+    two matmul launches."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import KFACConfig
+    n_factor_sides, n_blocks, n_full = 38, 20, 42
+    ns = n_refresh * n_full * KFACConfig().ns_iters
+    want = {name: 0 for name in K.WRAPPERS}
+    want.update(patch_factor=2 * steps, factor_update=n_factor_sides * steps,
+                precondition=n_blocks * steps, ns_step=ns,
+                matmul=2 * (n_blocks * steps + ns))
+    return want
+
+
+def whisper_main(steps: int, ckpt: str) -> dict:
     """``Trainer.fit`` of full-width whisper-small through
-    ``launch/train.py``'s ``main``, the launch counters zeroed just before
-    and read just after.  Each stats step launches patch_factor twice
-    (conv1, conv2), factor_update on both sides of the 18 stacked dense
-    layers and on the conv stems' G sides (38) and precondition on the 20
-    Kronecker blocks; each refresh ns_step on the 42 full factors times 12
-    iterations (the embedding's G, the head's Ā: their diagonal sides take
-    no kernel), each ns_step and precondition two matmul launches."""
+    ``launch/train.py``'s ``main`` with ``--ckpt_dir ckpt``, the launch
+    counters zeroed just before and read just after
+    (``whisper_launches``): the checkpoint at step ``steps``, written after
+    the timed steps, its bytes, host-copy ms and write seconds."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import KFACConfig
     from repro_torch.launch import train
     from repro_torch.models.lm import LM
 
@@ -1247,27 +1297,29 @@ def whisper_main(steps: int) -> dict:
     resident = torch.cuda.memory_allocated()
     K.reset_launches()
     t0 = time.perf_counter()
-    ms = []
-    res = train.main(["--arch", "whisper-small", "--steps", str(steps)],
-                     log=lambda msg: print(f"  {msg}"),
-                     wrap_opt=lambda opt: timed(opt, ms))
+    ms, seen = [], {}
+    with launcher_checkpointer(seen):
+        res = train.main(["--arch", "whisper-small", "--steps", str(steps),
+                          "--ckpt_dir", ckpt],
+                         log=lambda msg: print(f"  {msg}"),
+                         wrap_opt=lambda opt: timed(opt, ms))
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall_ckpt = time.perf_counter() - t0
     launches = K.launches()
     peak = torch.cuda.max_memory_allocated()
+    ck = seen["ckpt"]
+    # the checkpoint's blocking host copy and the write that fit waits for,
+    # taken out: wall_s keeps the meaning it had before the checkpoint
+    ckpt_s = ck.stats["save_host_ms"] / 1e3 + ck.stats["write_s"]
+    wall = wall_ckpt - ckpt_s
     refresh = [i for i in range(steps) if i < 3 or i % 5 == 0]
-    kfac_cfg = KFACConfig()
-    n_factor_sides, n_blocks, n_full = 38, 20, 42
-    ns = len(refresh) * n_full * kfac_cfg.ns_iters
-    want = {name: 0 for name in K.WRAPPERS}
-    want.update(patch_factor=2 * steps, factor_update=n_factor_sides * steps,
-                precondition=n_blocks * steps, ns_step=ns,
-                matmul=2 * (n_blocks * steps + ns))
+    want = whisper_launches(steps, len(refresh))
     losses = [h["loss"] for h in res["history"]]
     plain = sorted(t for i, t in enumerate(ms) if i not in refresh)
     print(f"[main:whisper] full-width whisper-small "
           f"({LM(get_config('whisper-small'), device='cuda').n_params():,} "
-          f"params), batch 8, seq 64, {steps} steps in {wall:.1f} s")
+          f"params), batch 8, seq 64, {steps} steps in {wall:.1f} s "
+          f"({wall_ckpt:.1f} s with the checkpoint's {ckpt_s:.1f} s)")
     print(f"  per-step ms: {[round(t, 1) for t in ms]}")
     print(f"  plain-step median {plain[len(plain) // 2]:.1f} ms; refresh "
           f"steps {[round(ms[i], 1) for i in refresh]} ms (step 0 includes "
@@ -1286,7 +1338,17 @@ def whisper_main(steps: int) -> dict:
            "plain_step_ms_median": plain[len(plain) // 2],
            "refresh_step_ms": {i: ms[i] for i in refresh},
            "peak_mem_bytes": peak, "resident_bytes_before": resident,
-           "losses": losses, "launches": launches, "wall_s": wall}
+           "losses": losses, "launches": launches, "wall_s": wall,
+           "wall_with_ckpt_s": wall_ckpt}
+    npz = Path(ckpt) / f"step_{steps:08d}" / "arrays.npz"
+    if ck.all_steps() != [steps]:
+        raise AssertionError(f"whisper: checkpoints {ck.all_steps()}")
+    out["ckpt"] = dict(ck.stats, npz_bytes=npz.stat().st_size)
+    print(f"[ckpt:whisper] checkpoint at step {steps}: "
+          f"{ck.stats['bytes']:,} bytes ({out['ckpt']['npz_bytes']:,} in "
+          f"arrays.npz); save host copy {ck.stats['save_host_ms']:.1f} ms, "
+          f"write {ck.stats['write_s']:.2f} s on the thread (after the "
+          f"timed steps; not in the {wall:.1f} s above)")
     del res
     torch.cuda.empty_cache()
     return out
@@ -1671,11 +1733,8 @@ def ae_model():
 
 
 # schedule of 25 steps: refreshes at steps 0, 1, 2 (warmup), 5, 10, 15 (T3)
-# and the gamma sweep at 20 (3 candidates: batched into the NS launches; one
-# rotate_rescale per candidate and layer in eigen mode; the fused path
-# applies candidate 0 only; tridiag's per-layer NS refresh is blkdiag's, and
-# its Ξᵀ Λ Ξ apply runs no kernel)
-AE_STEPS, AE_REFRESH, AE_SWEEP, AE_N_REFRESH = 25, (1, 2, 5, 10, 15), 20, 7
+# and the gamma sweep at 20 (``ae_launches`` counts the launches)
+AE_STEPS, AE_REFRESH, AE_SWEEP = 25, (1, 2, 5, 10, 15), 20
 
 
 def staggered_ns(cfg, steps: int) -> int:
@@ -1697,43 +1756,47 @@ def staggered_ns(cfg, steps: int) -> int:
     return n
 
 
-def ae_launches(label: str, steps: int) -> dict:
-    """The launch counts of ``steps`` full-width autoencoder steps on one
-    K-FAC path.  blkdiag without momentum launches what blkdiag does: the
-    momentum tangent enters only the quadratic model, which runs no kernel
-    of ``repro_torch.kernels``.  tridiag launches blkdiag's factor_update
-    and NS refresh and nothing else: its cross moments, Ψ/Σ cache and
-    apply are plain products and cuSOLVER eigh, as in the reference.
-    The modes: τ1 and the Gaussian loss launch what blkdiag does (the
-    sub-batch changes the rows, not the launches); ``stats_period=2``
-    updates the factors on the even steps only; the staggered paths
-    launch ns_step as ``staggered_ns`` counts (eigen: no ns_step)."""
+def ae_launches(label: str, stop: int, start: int = 0) -> dict:
+    """The launch counts of a full-width autoencoder path's steps ``start``
+    to ``stop``, the warmup (re-)armed at ``start`` as
+    ``KFACPipeline.update`` arms it: refreshes at the first three steps and
+    every T3, the γ sweep every T2 (3 candidates, batched into the NS
+    launches; one rotate_rescale per candidate and layer in eigen mode; the
+    fused path applies candidate 0 only), per step a statistics pass on the
+    16 factor sides and an apply on the 8 layers.  blkdiag without
+    momentum launches what blkdiag does: the momentum tangent enters only
+    the quadratic model, which runs no kernel of ``repro_torch.kernels``.
+    tridiag launches blkdiag's factor_update and NS refresh and nothing
+    else: its cross moments, Ψ/Σ cache and apply are plain products and
+    cuSOLVER eigh, as in the reference.  The modes: τ1 and the Gaussian
+    loss launch what blkdiag does (the sub-batch changes the rows, not the
+    launches); ``stats_period=2`` updates the factors on the even steps
+    only; the staggered paths launch ns_step as ``staggered_ns`` counts
+    (eigen: no ns_step)."""
     from repro_torch import kernels as K
-    paths = ae_paths()
-    zero = {name: 0 for name in K.WRAPPERS}
-    ns = AE_N_REFRESH * 16 * paths["blkdiag"].ns_iters
-    pc = 8 * steps + 2 * 8
-    blkdiag = dict(zero, factor_update=16 * steps, precondition=pc,
-                   ns_step=ns, matmul=2 * (pc + ns))
-    eigen = dict(zero, factor_update=16 * steps, rotate_rescale=pc,
-                 matmul_rescale=pc, matmul=3 * pc)
-    tridiag = dict(zero, factor_update=16 * steps, ns_step=ns,
-                   matmul=2 * ns)
-    if label in ("staggered", "staggered_tridiag"):
-        ns_stag = staggered_ns(modes_paths()[label][0], steps)
-        if label == "staggered":
-            return dict(blkdiag, ns_step=ns_stag, matmul=2 * (pc + ns_stag))
-        return dict(tridiag, ns_step=ns_stag, matmul=2 * ns_stag)
-    return {"blkdiag": blkdiag, "blkdiag_no_momentum": blkdiag,
-            "tau1": blkdiag, "gaussian": blkdiag,
-            "stats_period2": dict(blkdiag,
-                                  factor_update=16 * len(range(0, steps, 2))),
-            "eigen": eigen, "staggered_eigen": eigen,
-            "fused": dict(zero, factor_update=16 * steps, ns_step=ns,
-                          precond_momentum=8 * steps,
-                          axpy_momentum=8 * steps,
-                          matmul=2 * ns + 8 * steps),
-            "tridiag": tridiag}[label]
+    cfg = all_paths().get(label, (ae_paths()["blkdiag"],))[0]
+    steps = range(start, stop)
+    sweeps = [s for s in steps if cfg.t2 > 0 and s > 0 and s % cfg.t2 == 0]
+    refresh = [s for s in steps if s not in sweeps
+               and (s - start < 3 or s % cfg.t3 == 0)]
+    n = len(steps)
+    ns = (len(refresh) + len(sweeps)) * 16 * cfg.ns_iters
+    if cfg.refresh_mode == "staggered":
+        if start:
+            raise ValueError("the staggered schedule is counted from step 0")
+        ns = staggered_ns(cfg, stop)
+    pc = 8 * n + 2 * 8 * len(sweeps)
+    want = dict({name: 0 for name in K.WRAPPERS}, factor_update=16 * len(
+        [s for s in steps if s % cfg.stats_period == 0]))
+    if cfg.inv_mode == "eigen":
+        return dict(want, rotate_rescale=pc, matmul_rescale=pc,
+                    matmul=3 * pc)
+    if cfg.inv_mode == "tridiag":
+        return dict(want, ns_step=ns, matmul=2 * ns)
+    if not cfg.use_rescale:
+        return dict(want, ns_step=ns, precond_momentum=8 * n,
+                    axpy_momentum=8 * n, matmul=2 * ns + 8 * n)
+    return dict(want, precondition=pc, ns_step=ns, matmul=2 * (pc + ns))
 
 
 def fit_timed(opt, mlp, params, data, steps: int, log_every: int = 5):
@@ -2225,6 +2288,407 @@ def whisper_adam(steps: int = 3) -> dict:
             "losses": losses, "launches": launches}
 
 
+# ---- the "ckpt" phase: checkpoints, resume, preemption, bundles ------------
+
+CKPT_AT, CKPT_TO = 7, 12      # the autoencoder's checkpoint and resume end
+W_CKPT_TO = W_STEPS + 2       # whisper's relaunch: two steps after step 10
+
+
+def ckpt_dir(label: str) -> str:
+    """A fresh ``tempfile.mkdtemp()`` directory, its disk usage printed."""
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix=f"ckpt_{label}_")
+    du = shutil.disk_usage(d)
+    print(f"[ckpt:{label}] {d}: disk total {du.total / 2 ** 30:.1f} GiB, "
+          f"used {du.used / 2 ** 30:.1f} GiB, free {du.free / 2 ** 30:.1f} "
+          f"GiB")
+    return d
+
+
+def recording_checkpointer(directory: str):
+    """A ``Checkpointer`` on ``directory`` that also keeps its own host
+    copy of every tree it saves, taken at the save (``copies[step]``)."""
+    from repro_torch.training.checkpoint import Checkpointer, host_copy
+
+    class Recording(Checkpointer):
+        def save(self, step, tree, **kw):
+            self.copies[step] = host_copy(tree)
+            return super().save(step, tree, **kw)
+
+    ck = Recording(directory)
+    ck.copies = {}
+    return ck
+
+
+def _bitwise(label: str, got: dict, want: dict, what: str) -> None:
+    """``got`` holds ``want``'s keys, each array with its dtype and bits."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: {what}: keys differ: "
+                             f"{sorted(set(got) ^ set(want))[:8]}")
+    for k, v in want.items():
+        a = got[k].cpu().numpy() if isinstance(got[k], torch.Tensor) \
+            else got[k]
+        if a.dtype != v.dtype or a.shape != v.shape or not np.array_equal(
+                a, v):
+            raise AssertionError(f"{label}: {what}: {k} differs")
+
+
+def _sigterm_at(data, at: int):
+    """``data`` that sends this process SIGTERM while step ``at``'s batch
+    is built."""
+    import os
+    import signal
+
+    class Data:
+        def batch(self, step):
+            if step == at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return data.batch(step)
+
+    return Data()
+
+
+def ckpt_preempt(mlp, params, data) -> dict:
+    """SIGTERM while step 3's batch is built, on blkdiag: ``fit`` finishes
+    step 3, commits ``step_00000004`` by a blocking save and stops; the
+    SIGTERM handler is afterwards what it was before."""
+    import os
+    import shutil
+    import signal
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optimizers.kfac import kfac
+    from repro_torch.training.checkpoint import Checkpointer
+    from repro_torch.training.trainer import Trainer
+    d = ckpt_dir("preempt")
+    ck = Checkpointer(d)
+    before = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    out = Trainer(mlp, kfac(mlp, ae_paths()["blkdiag"], family="bernoulli",
+                            device="cuda"),
+                  TrainConfig(steps=AE_STEPS, seed=0, log_every=10 ** 9),
+                  device="cuda", checkpointer=ck).fit(
+        params, _sigterm_at(data, 3), steps=AE_STEPS,
+        log=lambda msg: print(f"  {msg}"))
+    wall = time.perf_counter() - t0
+    after = signal.getsignal(signal.SIGTERM)
+    steps = ck.all_steps()
+    print(f"[ckpt:preempt] SIGTERM at step 3's batch: {len(out['history'])} "
+          f"steps run, committed checkpoints {steps}, handler before "
+          f"{before!r}, after {after!r}; blocking save "
+          f"{ck.stats['save_host_ms']:.1f} ms host copy + "
+          f"{ck.stats['write_s']:.3f} s write; {wall:.1f} s")
+    if len(out["history"]) != 4 or steps != [4] or not os.path.exists(
+            os.path.join(d, "step_00000004", "COMMIT")):
+        raise AssertionError(f"preempt: {len(out['history'])} steps, "
+                             f"checkpoints {steps}")
+    if after != before:
+        raise AssertionError(f"preempt: SIGTERM handler {after!r} after fit, "
+                             f"{before!r} before")
+    shutil.rmtree(d)
+    return {"steps_run": len(out["history"]), "checkpoints": steps,
+            **ck.stats}
+
+
+def ckpt_bundle_checks(label, mlp, ck, copy, state) -> dict:
+    """The bundle written at step 7 (eigen: bitwise the state's ``inv``;
+    blkdiag: the ``rotate_rescale`` apply of the loaded bundle against the
+    ``precondition`` kernel on the eigh-damped inverses of the same factors
+    and γ, within min(5e-6·κ, 2e-3); eigen also a bfloat16 bundle)."""
+    from repro_torch.curvature import load_bundle, save_bundle
+    from repro_torch.curvature import snapshot_bundle
+    from repro_torch.optimizers.kfac import kfac
+    path = ck.bundle_path(CKPT_AT)
+    if path is None:
+        raise AssertionError(f"{label}: no curvature bundle at step "
+                             f"{CKPT_AT}")
+    engine = kfac(mlp, ae_paths()[label], family="bernoulli",
+                  device="cuda").engine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snapshot_bundle(engine, state)
+    torch.cuda.synchronize()
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    bundle = load_bundle(path, device="cuda")
+    out = {"snapshot_ms": snapshot_ms, "bundle_step": bundle.step}
+    if label == "eigen":
+        got = {f"state::inv::{n}::{k}": v for n, e in bundle.eigen.items()
+               for k, v in e.items()}
+        _bitwise(label, got, {k: copy[k] for k in got}, "bundle vs inv")
+        half_dir = path + "_bf16"
+        save_bundle(bundle, half_dir, dtype="bfloat16")
+        half = load_bundle(half_dir, device="cuda")
+        for n, e in bundle.eigen.items():
+            for k in ("qa", "qg"):
+                if not torch.equal(half.eigen[n][k],
+                                   e[k].to(torch.bfloat16).float()):
+                    raise AssertionError(f"{label}: bf16 bundle {n} {k}")
+        print(f"[ckpt:{label}] bundle at step {bundle.step}: qa/qg/s/damp "
+              f"bitwise the state's inv; bf16 bases bitwise "
+              f"q.to(torch.bfloat16).float()")
+        out["bf16_bitwise"] = True
+    if label == "blkdiag":
+        errs = {}
+        g = torch.Generator(device="cuda").manual_seed(11)
+        gamma = torch.from_numpy(copy["state::gamma"]).cuda()
+        for n, blk in engine.blocks.items():
+            fac = {s: torch.from_numpy(copy[f"state::factors::{n}::{s}"])
+                   .cuda() for s in ("a", "g")}
+            m = blk.meta
+            v = torch.randn(m.a_dim, m.g_dim, generator=g, device="cuda")
+            eig = bundle.eigen[n]
+            got = blk.precondition_eigen(eig, v)
+            want = blk.precondition(blk.damped_inverse(
+                fac, gamma, method="eigh"), v)
+            sd = eig["s"] + eig["damp"]
+            kappa = (sd.max() / sd.min()).item()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            errs[n] = {"max_abs_err": err, "scale": scale, "kappa": kappa}
+            # queue C's eigen-vs-eigh 5e-6·κ, capped at 2e-3: 4x the
+            # largest relative error the card has shown (5.0e-4 at κ 4.6e4)
+            ok = (math.isfinite(err)
+                  and err <= min(5e-6 * kappa, 2e-3) * scale)
+            print(f"  {label} bundle apply {n}: rotate_rescale vs eigh "
+                  f"precondition max|err| {err:.3e}, scale {scale:.3e}, "
+                  f"kappa {kappa:.3e}, tol min(5e-6*kappa, 2e-3)*scale "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{label}: bundle apply {n} "
+                                     f"disagrees: {err:.3e}")
+        out["apply"] = errs
+    return out
+
+
+def ckpt_ae(label: str, mlp, params, data, main_losses: list) -> dict:
+    """One phase-5 path: ``Trainer.fit`` to step 7 with an asynchronous
+    ``Checkpointer`` (and, on blkdiag and eigen, a curvature bundle), then
+    a new optimizer and trainer resume from step 7 to 12.  Held: the arrays
+    read back bitwise a host copy taken at the save; the first run's losses
+    and the resumed run's first loss bitwise phase 5's; exact launch counts
+    of both runs, the resumed one's with its warmup re-armed at step 7;
+    the checkpoint restored into a CPU template bitwise; on blkdiag a
+    second resume bitwise the first."""
+    import os
+    import shutil
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optimizers.kfac import kfac
+    from repro_torch.training.checkpoint import Checkpointer
+    from repro_torch.training.trainer import Trainer
+    from repro_torch.utils.tree import flatten_with_keys, unflatten_with_keys
+
+    cfg = ae_paths()[label]
+    bundles = label in ("blkdiag", "eigen")
+    d = ckpt_dir(label)
+    tcfg = TrainConfig(steps=CKPT_TO, seed=0, log_every=10 ** 9,
+                       checkpoint_every=CKPT_AT,
+                       curvature_every=CKPT_AT if bundles else 0)
+    opt = lambda: kfac(mlp, cfg, family="bernoulli", device="cuda")
+    ck = recording_checkpointer(d)
+    trainer = Trainer(mlp, opt(), tcfg, device="cuda", checkpointer=ck)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    first = trainer.fit(params, data, steps=CKPT_AT, log=lambda *_: None)
+    torch.cuda.synchronize()
+    launches_first = K.launches()
+    saved = dict(ck.stats)
+    if bundles:
+        saved["bundle_write_s"] = trainer._bundle_writer.write_s
+    copy = ck.copies[CKPT_AT]
+    step_dir = os.path.join(d, f"step_{CKPT_AT:08d}")
+    with np.load(os.path.join(step_dir, "arrays.npz")) as z:
+        read = {k: z[k] for k in z.files}
+    _bitwise(label, read, copy, "arrays.npz vs the host copy at the save")
+    npz_bytes = os.path.getsize(os.path.join(step_dir, "arrays.npz"))
+    losses_first = [h["loss"] for h in first["history"]]
+    if losses_first != main_losses[:CKPT_AT]:
+        raise AssertionError(f"{label}: steps 0-6 {losses_first} differ "
+                             f"from phase 5's {main_losses[:CKPT_AT]}")
+
+    def resume():
+        checkpointer = Checkpointer(d)
+        tr = Trainer(mlp, opt(), tcfg, device="cuda",
+                     checkpointer=checkpointer)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        out = tr.fit(params, data, steps=CKPT_TO, log=lambda *_: None)
+        torch.cuda.synchronize()
+        return out, K.launches(), dict(checkpointer.stats)
+
+    second, launches, restored = resume()
+    losses = [h["loss"] for h in second["history"]]
+    want_first = ae_launches(label, CKPT_AT)
+    want = ae_launches(label, CKPT_TO, start=CKPT_AT)
+    by_size = {}
+    for k, v in copy.items():
+        part = k.split("::")[1] if k.startswith("state::") else "params"
+        by_size[part] = by_size.get(part, 0) + v.nbytes
+    print(f"[ckpt:{label}] checkpoint at step {CKPT_AT}: "
+          f"{saved['bytes']:,} bytes ({npz_bytes:,} in arrays.npz; "
+          f"{dict(sorted(by_size.items()))}); save host copy "
+          f"{saved['save_host_ms']:.2f} ms, write {saved['write_s']:.3f} s "
+          f"on the thread; restore read {restored['restore_read_s']:.3f} s, "
+          f"to device {restored['restore_device_s']:.3f} s")
+    print(f"  arrays.npz read back bitwise the host copy at the save "
+          f"({len(copy)} arrays); steps 0-{CKPT_AT - 1} bitwise phase 5's")
+    print(f"  resumed losses {losses} (phase 5's step {CKPT_AT}: "
+          f"{main_losses[CKPT_AT]})")
+    print(f"  launches to step {CKPT_AT}: {launches_first}")
+    print(f"  launches resumed {CKPT_AT}-{CKPT_TO - 1} (warmup re-armed): "
+          f"{launches}")
+    if losses[0] != main_losses[CKPT_AT]:
+        raise AssertionError(f"{label}: resumed first loss {losses[0]} is "
+                             f"not phase 5's {main_losses[CKPT_AT]}")
+    if len(losses) != CKPT_TO - CKPT_AT or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: resumed losses {losses}")
+    if launches_first != want_first or launches != want:
+        raise AssertionError(f"{label}: launches {launches_first} / "
+                             f"{launches}, expected {want_first} / {want}")
+    # the card-written checkpoint restored into a CPU template
+    template = {"params": params,
+                "state": opt().init(params, data.batch(0))}
+    cpu_template = unflatten_with_keys(template, flatten_with_keys(template),
+                                       lambda _, t: t.cpu())
+    _, on_cpu = Checkpointer(d).restore(cpu_template)
+    flat = flatten_with_keys(on_cpu)
+    if any(t.device.type != "cpu" for t in flat.values()):
+        raise AssertionError(f"{label}: CPU restore left a leaf on the card")
+    _bitwise(label, flat, {k: copy[k] for k in flat}, "restore on the CPU")
+    tri = on_cpu["state"].inv.get("__tri__", "absent")
+    print(f"  restored into a CPU template bitwise ({len(flat)} arrays; "
+          f"the tridiag cache: {'None' if tri is None else tri})")
+    if label == "tridiag" and tri is not None:
+        raise AssertionError("tridiag: the Ψ/Σ cache was restored")
+    out = {"bytes": saved["bytes"], "npz_bytes": npz_bytes,
+           "bytes_by_part": by_size, **saved,
+           "restore_read_s": restored["restore_read_s"],
+           "restore_device_s": restored["restore_device_s"],
+           "resumed_losses": losses, "launches_first": launches_first,
+           "launches": launches}
+    if label == "blkdiag":
+        again, launches2, _ = resume()
+        if ([h["loss"] for h in again["history"]] != losses
+                or launches2 != launches):
+            raise AssertionError(f"{label}: a second resume differs")
+        _bitwise(label, {k: v.cpu().numpy() for k, v in flatten_with_keys(
+            again["params"]).items()}, {k: v.cpu().numpy() for k, v in
+                                        flatten_with_keys(
+                                            second["params"]).items()},
+                 "second resume's parameters")
+        print("  a second resume from the same checkpoint: history and "
+              "parameters bitwise the first's")
+    if bundles:
+        out["bundle"] = ckpt_bundle_checks(label, mlp, ck, copy,
+                                           first["state"])
+        print(f"  bundle snapshot {out['bundle']['snapshot_ms']:.2f} ms, "
+              f"write {saved['bundle_write_s']:.3f} s on the thread")
+    shutil.rmtree(d)
+    return out
+
+
+def whisper_ckpt_bytes() -> int:
+    """The bytes a full-width whisper-small blkdiag checkpoint holds, from
+    its metas: parameters and ``delta0``, each block's two factors and two
+    inverses (a full side d², a diagonal one d; stacked layers times their
+    stack), the untagged parameters' diagonals."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    lm = LM(get_config("whisper-small"), device="cuda")
+    tagged = 0
+    factors = 0
+    for m in lm.metas.values():
+        side = lambda dim, kind: dim if kind == "diag" else dim * dim
+        factors += max(1, m.n_stack) * (side(m.a_dim, m.a_kind)
+                                        + side(m.g_dim, m.g_kind))
+        tagged += max(1, m.n_stack) * m.d_out * m.a_dim
+    n = lm.n_params()
+    return 4 * (2 * n + 2 * factors + (n - tagged))
+
+
+@contextlib.contextmanager
+def launcher_checkpointer(seen: dict):
+    """``launch/train.py``'s ``Checkpointer`` swapped, inside, for one that
+    records itself in ``seen["ckpt"]`` and, around each restore, the
+    device memory before, at its peak and after."""
+    from repro_torch.launch import train
+
+    class Measured(train.Checkpointer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            seen["ckpt"] = self
+
+        def restore(self, template, **kw):
+            torch.cuda.synchronize()
+            seen["before"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = super().restore(template, **kw)
+            seen["peak"] = torch.cuda.max_memory_allocated()
+            seen["after"] = torch.cuda.memory_allocated()
+            return got
+
+    keep, train.Checkpointer = train.Checkpointer, Measured
+    try:
+        yield seen
+    finally:
+        train.Checkpointer = keep
+
+
+def whisper_resume(d: str) -> dict:
+    """A relaunch of ``launch/train.py --steps 12 --ckpt_dir`` on the
+    directory of the whisper phase's 10-step run: it resumes at step 10
+    and runs steps 10 and 11, both warmup refreshes (re-armed at the
+    restore), with exact launch counts and a finite loss; the restore's
+    read and to-device seconds and the device's peak during it."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import train
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    ms, logs, seen = [], [], {}
+    with launcher_checkpointer(seen):
+        res = train.main(["--arch", "whisper-small", "--steps",
+                          str(W_CKPT_TO), "--ckpt_dir", d],
+                         log=lambda msg: (logs.append(msg),
+                                          print(f"  {msg}")),
+                         wrap_opt=lambda opt: timed(opt, ms))
+    torch.cuda.synchronize()
+    launches = K.launches()
+    losses = [h["loss"] for h in res["history"]]
+    refresh = [s for s in range(W_STEPS, W_CKPT_TO)
+               if s - W_STEPS < 3 or s % 5 == 0]
+    want = whisper_launches(W_CKPT_TO - W_STEPS, len(refresh))
+    st = seen["ckpt"].stats
+    print(f"[ckpt:whisper] relaunch --steps {W_CKPT_TO}: restore read "
+          f"{st['restore_read_s']:.2f} s, to device "
+          f"{st['restore_device_s']:.2f} s; device "
+          f"{seen['before'] / 2 ** 20:.1f} MiB before the restore, peak "
+          f"{seen['peak'] / 2 ** 20:.1f} MiB during it, "
+          f"{seen['after'] / 2 ** 20:.1f} MiB after")
+    print(f"  per-step ms {[round(t, 1) for t in ms]} (refresh steps "
+          f"{refresh}); losses {losses}")
+    print(f"  launches: {launches}")
+    if f"[trainer] restored checkpoint at step {W_STEPS}" not in logs:
+        raise AssertionError("whisper relaunch: no restore at step "
+                             f"{W_STEPS}")
+    if len(losses) != W_CKPT_TO - W_STEPS or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"whisper relaunch: losses {losses}")
+    if launches != want:
+        raise AssertionError(f"whisper relaunch: launch counts {launches}, "
+                             f"expected {want}")
+    del res
+    torch.cuda.empty_cache()
+    return {"restore_read_s": st["restore_read_s"],
+            "restore_device_s": st["restore_device_s"],
+            "restore_peak_bytes": seen["peak"],
+            "restore_before_bytes": seen["before"],
+            "restore_after_bytes": seen["after"], "step_ms": ms,
+            "losses": losses, "launches": launches,
+            "refresh_steps": refresh}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. device ---------------------------------------------------
@@ -2689,6 +3153,17 @@ def main() -> None:
             launches_by_path[f"race_{row}"] = r["launches"]
     print(f"[time] race phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    # ---- ckpt: checkpoints, resume, preemption, curvature bundles ----
+    for label in paths:
+        key = f"ckpt_{label}"
+        main_out[key] = ckpt_ae(label, mlp, params, data,
+                                main_out[label]["losses"])
+        launches_by_path[f"{key}_to{CKPT_AT}"] = main_out[key][
+            "launches_first"]
+        launches_by_path[key] = main_out[key]["launches"]
+    main_out["ckpt_preempt"] = ckpt_preempt(mlp, params, data)
+    print(f"[time] ckpt phase (autoencoder) done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     # ---- 6. the serve path -------------------------------------------
     # full-width llama3.2-1b, the port's own weights from seed 0: 32
     # greedy requests, prompts of 64..1024 tokens (all lengths distinct, so
@@ -2778,8 +3253,24 @@ def main() -> None:
     # full-width whisper-small through the launcher (batch 8, seq 64,
     # lambda_init 10, T3 5, blkdiag ns): warmup refreshes at steps 0-2, the
     # T3 refresh at 5, lambda steps at 4 and 9
-    main_out["whisper"] = whisper_main(W_STEPS)
+    # with --ckpt_dir: its checkpoint at step 10, then the ckpt phase's
+    # relaunch resumes there (one whisper save and one restore)
+    import shutil
+    wdir = ckpt_dir("whisper")
+    need = whisper_ckpt_bytes()
+    free = shutil.disk_usage(wdir).free
+    print(f"[ckpt:whisper] predicted checkpoint {need:,} bytes, "
+          f"{free:,} bytes free")
+    if free < 1.2 * need:
+        raise AssertionError(f"whisper: {free:,} bytes free for a "
+                             f"{need:,}-byte checkpoint")
+    main_out["whisper"] = whisper_main(W_STEPS, wdir)
     launches_by_path["whisper"] = main_out["whisper"]["launches"]
+    main_out["ckpt_whisper"] = dict(whisper_resume(wdir),
+                                    **main_out["whisper"]["ckpt"],
+                                    predicted_bytes=need)
+    launches_by_path["ckpt_whisper"] = main_out["ckpt_whisper"]["launches"]
+    shutil.rmtree(wdir)
     main_out["whisper_adam"] = whisper_adam()
     launches_by_path["whisper_adam"] = main_out["whisper_adam"]["launches"]
     # the modes phase's whisper run, after serving as whisper's own

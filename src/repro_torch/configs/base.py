@@ -183,9 +183,16 @@ class KFACConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training-loop settings.  The port's trainer reads ``seed`` and
-    ``log_every``; the checkpoint fields wait for the checkpoint slice."""
+    """Training-loop settings (the reference's, less the dtype, remat,
+    gradient-accumulation and telemetry fields, which the port's trainer
+    does not read)."""
 
     steps: int = 200
     seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
     log_every: int = 10
+    curvature_every: int = 0          # export a curvature bundle at steps
+                                      # divisible by this AND by
+                                      # checkpoint_every (0 = never)

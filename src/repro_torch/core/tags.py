@@ -38,6 +38,9 @@ class LayerMeta:
     a_blocks: int = 1               # block count when a_kind == "block"
     g_blocks: int = 1               # (read by the refresh planner's costs)
     has_bias: bool = False          # homogeneous coordinate appended to ā
+    probe_tshard: bool = False      # the reference's context-parallel probe
+                                    # flag: never set by the port, carried
+                                    # by a bundle's manifest
     # convolution layers (kind == "conv", KFC — 1602.01407): the weight is a
     # (prod(conv_spatial)*conv_in [+1], d_out) matrix over tap-major patch
     # features [k, c]; d_in is the flattened patch width

@@ -16,8 +16,11 @@ factor statistics on every round(1/τ1)-th sequence of the batch; the
 reference's ``sharded`` and ``overlap`` refresh modes wait for the
 distributed slice.  Weights are the port's own random initialization from
 seed 0; the tokens and mel frames are the reference's synthetic streams,
-bitwise.  The reference's ``--mesh``, ``--ckpt_dir`` and ``--obs*``
-options wait for their slices, and so does training the
+bitwise.  ``--ckpt_dir DIR`` checkpoints into DIR every
+``max(10, steps // 2)`` steps, as the reference does, and a relaunch with
+the same DIR resumes from its latest checkpoint (``--steps`` is the step to
+stop at); without it nothing is written.  The reference's ``--mesh`` and
+``--obs*`` options wait for their slices, and so does training the
 decoder-only archs: ``--arch`` offers whisper-small, the one arch whose
 training is held against the reference.
 """
@@ -32,6 +35,7 @@ from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.configs.base import KFACConfig, TrainConfig
 from repro_torch.data.pipeline import SyntheticLMData, make_audio_batch
 from repro_torch.models.lm import LM
+from repro_torch.training.checkpoint import Checkpointer
 from repro_torch.training.trainer import Trainer
 
 
@@ -61,6 +65,7 @@ def main(argv=None, log=print, wrap_opt=None):
                     choices=TRAINED_ARCHS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--ckpt_dir", default="")
     ap.add_argument("--global_batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--optimizer", default="kfac",
@@ -96,10 +101,16 @@ def main(argv=None, log=print, wrap_opt=None):
     data = _ArchData(cfg, SyntheticLMData(cfg.vocab_size, args.seq,
                                           args.global_batch,
                                           device=args.device))
-    trainer = Trainer(lm, opt, TrainConfig(steps=args.steps),
-                      device=args.device)
+    tcfg = TrainConfig(steps=args.steps,
+                       checkpoint_every=max(10, args.steps // 2))
+    ckpt = (Checkpointer(args.ckpt_dir, keep=tcfg.keep_checkpoints)
+            if args.ckpt_dir else None)
+    trainer = Trainer(lm, opt, tcfg, device=args.device, checkpointer=ckpt)
     result = trainer.fit(params, data, args.steps, log=log)
     hist = result["history"]
+    if not hist:      # resumed at or past --steps
+        log(f"[train] done: no step left before step {args.steps}")
+        return result
     log(f"[train] done: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}"
         f" in {result['seconds']:.1f}s")
     return result

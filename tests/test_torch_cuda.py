@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card, against their plain versions,
 three full-width trainer steps on each path (blkdiag, eigen, fused,
 tridiag with the exact-F re-scaling and on the fused chain; the
-staggered refresh's three steps after its warmup), a
-reduced llama serving run on each decode route and a reduced gemma2 one.
+staggered refresh's three steps after its warmup), a full-width blkdiag
+resume from a checkpoint with exact launches, checkpoints written from the
+card restored on the CPU bitwise, the eigen path's bundle bitwise its
+state, a reduced llama serving run on each decode route and a reduced
+gemma2 one.
 No JAX: the machine with the card has none.
 
 Every test is marked ``cuda`` and skips, inside its body, when
@@ -1218,3 +1221,95 @@ def test_reduced_whisper_training_cuda_vs_cpu():
                 assert n[name] > 0, (name, n)
     for a, b in zip(hist["cuda"], hist["cpu"]):
         assert a == pytest.approx(b, rel=1e-3), hist
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and bundles written from the card
+# ---------------------------------------------------------------------------
+
+def test_full_width_blkdiag_resume_launches(tmp_path):
+    """Full-width blkdiag: 7 steps with a checkpoint at step 7, then a new
+    optimizer and trainer resume there for steps 7 and 8, both warmup
+    refreshes (re-armed at the restore): exact launches, finite losses."""
+    from repro_torch.training.checkpoint import Checkpointer
+    _card()
+    mlp = MLP(DIMS, device="cuda")
+    params = mlp.init_params(torch.Generator().manual_seed(0))
+    data = SyntheticAutoencoderData(DIMS[0], 8, 8192, seed=7, device="cuda")
+    cfg = KFACConfig(inverse_method="ns", lambda_init=3.0, t3=5, eta=1e-5)
+    tcfg = TrainConfig(seed=0, checkpoint_every=7)
+    ck = Checkpointer(str(tmp_path))
+    Trainer(mlp, kfac(mlp, cfg, family="bernoulli", device="cuda"), tcfg,
+            device="cuda", checkpointer=ck).fit(params, data, steps=7,
+                                                log=lambda *_: None)
+    assert ck.all_steps() == [7]
+    logs = []
+    K.reset_launches()
+    out = Trainer(mlp, kfac(mlp, cfg, family="bernoulli", device="cuda"),
+                  tcfg, device="cuda", checkpointer=Checkpointer(
+                      str(tmp_path))).fit(params, data, steps=9,
+                                          log=logs.append)
+    assert "[trainer] restored checkpoint at step 7" in logs
+    losses = [h["loss"] for h in out["history"]]
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    ns = 2 * 16 * 12
+    assert K.launches() == {"factor_update": 32, "precondition": 16,
+                            "ns_step": ns, "matmul": 2 * (16 + ns),
+                            "matmul_rescale": 0, "rotate_rescale": 0,
+                            "axpy_momentum": 0, "precond_momentum": 0,
+                            "flash_decode": 0, "flash_decode_paged": 0,
+                            "flash_attention": 0, "patch_factor": 0}
+
+
+def _reduced_run(inv_mode, tmp_path, **tkw):
+    from repro_torch.training.checkpoint import Checkpointer
+    small = autoencoder_dims(reduced())
+    mlp = MLP(small, device="cuda")
+    params = mlp.init_params(torch.Generator().manual_seed(0))
+    data = SyntheticAutoencoderData(small[0], 8, 256, seed=7, device="cuda")
+    opt = kfac(mlp, KFACConfig(inv_mode=inv_mode, lambda_init=3.0, t3=5,
+                               eta=1e-5), family="bernoulli", device="cuda")
+    ck = Checkpointer(str(tmp_path))
+    out = Trainer(mlp, opt, TrainConfig(seed=0, checkpoint_every=3, **tkw),
+                  device="cuda", checkpointer=ck).fit(
+        params, data, steps=3, log=lambda *_: None)
+    return mlp, params, data, opt, ck, out
+
+
+@pytest.mark.parametrize("inv_mode", ["blkdiag", "tridiag"])
+def test_card_checkpoint_restores_on_cpu_bitwise(inv_mode, tmp_path):
+    """A checkpoint written from the card restores into a CPU template
+    (and with ``device="cpu"`` from a card template) bit for bit."""
+    from repro_torch.training.checkpoint import Checkpointer
+    from repro_torch.utils.tree import flatten_with_keys, unflatten_with_keys
+    _card()
+    mlp, params, data, opt, ck, out = _reduced_run(inv_mode, tmp_path)
+    saved = flatten_with_keys({"params": out["params"],
+                               "state": out["state"]})
+    template = {"params": params, "state": opt.init(params, data.batch(0))}
+    cpu = unflatten_with_keys(template, flatten_with_keys(template),
+                              lambda _, t: t.cpu())
+    for tmpl, kw in ((cpu, {}), (template, {"device": "cpu"})):
+        step, got = Checkpointer(str(tmp_path)).restore(tmpl, **kw)
+        assert step == 3
+        flat = flatten_with_keys(got)
+        assert set(flat) <= set(saved)
+        for k, v in flat.items():
+            assert v.device.type == "cpu"
+            assert v.dtype == saved[k].dtype
+            assert torch.equal(v, saved[k].cpu()), k
+        if inv_mode == "tridiag":
+            assert got["state"].inv["__tri__"] is None
+
+
+def test_eigen_bundle_from_the_card_is_the_state(tmp_path):
+    """The eigen path's bundle at its checkpoint step holds the state's
+    qa / qg / s / damp bit for bit, loaded on the card."""
+    from repro_torch.curvature import load_bundle
+    _card()
+    _, _, _, _, ck, out = _reduced_run("eigen", tmp_path, curvature_every=3)
+    bundle = load_bundle(ck.bundle_path(3), device="cuda")
+    assert bundle.step == 3
+    for name, eig in out["state"].inv.items():
+        for k in ("qa", "qg", "s", "damp"):
+            assert torch.equal(bundle.eigen[name][k], eig[k]), (name, k)
