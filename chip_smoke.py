@@ -194,6 +194,29 @@ on failure (nothing is caught):
             relaunch with ``--steps 12`` resumes at step 10 and runs two
             steps (both warmup refreshes) with exact launch counts and a
             finite loss, the device's peak during the restore printed.
+   conv     KFC convolutions and the backward-pass fused statistics
+            (``fused_stats``).  First factor_update at every factor side
+            of one full-width conv classifier step (``CONV_SIDES``: the
+            im2col rows of conv0, (524288, 28), conv1, (131072, 289), and
+            conv2, (32768, 289), each layer's G side, the head's) against
+            its plain version at beta = 0 and 0.95, held as phase 3 holds
+            it, conv0's and conv1's A sides timed beside addmm with their
+            launch plans and bounds.  Then the reduced conv classifier
+            (8x8x2, convs (8, 3, 1) and (8, 3, 2), 4 classes, N = 128) 6
+            steps on the card and on the CPU, same weights and uniforms,
+            on blkdiag (ns), eigen and the fused chain, each two-pass and
+            with ``fused_stats`` (``_fs``): losses within rtol 1e-3.  Then
+            ``Trainer.fit`` of the full-width conv classifier (32x32x3,
+            convs (32, 3, 1), (32, 3, 2), (64, 3, 2), 10 classes; N = 512
+            images a step from seed 7; weights from seed 0) for 25 steps
+            on each of those six paths: exact launch counts, the loss
+            finite and falling, plain-step and refresh-step ms of
+            ``opt.update``, peak memory, the accuracy.  Then the
+            full-width autoencoder with ``fused_stats`` on blkdiag and
+            eigen: one statistics pass against the two-pass one (every
+            factor within 1e-5 of its scale), 25 steps with exact launch
+            counts, the losses against phase 5's two-pass run (step 0
+            equal, then 5e-3 relative through step 19 and 2% after).
 6. serve    ``Engine.run`` on full-width llama3.2-1b (16 layers, d 2048,
             vocab 128256, float32 weights from seed 0, bf16 paged KV cache):
             32 greedy requests with prompts of 64-1024 tokens, 64 new
@@ -235,9 +258,10 @@ on failure (nothing is caught):
             profiles come last, so that no profiled window precedes a
             timed path.
 8. summary  the ``{"main": ...}`` (the modes' runs under ``modes_*``, the
-            ckpt phase's under ``ckpt_*``), ``{"serve": ...}``, ``{"race": ...}``
-            and ``{"kernels": [...]}`` lines, the nvidia-smi line, and last
-            ``{"ok": true, "device": {...}}``.
+            ckpt phase's under ``ckpt_*``, the fused autoencoder's under
+            ``ae_fs_*``), ``{"serve": ...}``, ``{"race": ...}``,
+            ``{"conv": ...}`` and ``{"kernels": [...]}`` lines, the
+            nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Bounds are the larger of fp32 operations over 67 TFLOP/s and bytes over
 3.35 TB/s (H100 SXM data sheet, at a 700 W power limit).  factor_update's
@@ -1686,36 +1710,48 @@ def all_paths() -> dict:
                for label, cfg in ae_paths().items()}, **modes_paths()}
 
 
-def agree_ae(label: str, cfg, loss: str) -> list:
-    """The reduced autoencoder (64-32-16-8 mirrored, N = 256) for 6 K-FAC
-    steps of one path on the card and on the CPU (plain versions), same
-    weights and uniforms: losses within rtol 1e-3."""
-    from repro_torch.configs.autoencoder import reduced
+def agree_run(tag: str, what: str, build, cfg, family: str) -> list:
+    """6 K-FAC steps of one path on the card and on the CPU (plain
+    versions), same weights and uniforms: losses within rtol 1e-3.
+    ``build(where)`` gives the model, its weights and its data on
+    ``where``."""
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.pipeline import SyntheticAutoencoderData
-    from repro_torch.models.mlp import MLP, autoencoder_dims
     from repro_torch.optimizers.kfac import kfac
     from repro_torch.training.trainer import Trainer
-    small = autoencoder_dims(reduced())
     hist = {}
     for where in ("cuda", "cpu"):
-        mlp = MLP(small, loss=loss, device=where)
-        params = mlp.init_params(torch.Generator().manual_seed(0))
-        data = SyntheticAutoencoderData(small[0], 8, 256, seed=7,
-                                        device=where)
+        model, params, data = build(where)
         noise = lambda step, shape, where=where: torch.rand(
             shape, generator=torch.Generator().manual_seed(step)).to(where)
-        tr = Trainer(mlp, kfac(mlp, cfg, family=loss, device=where),
+        tr = Trainer(model, kfac(model, cfg, family=family, device=where),
                      TrainConfig(seed=0, log_every=10 ** 9), noise=noise,
                      device=where)
         hist[where] = [h["loss"] for h in tr.fit(
             params, data, steps=6, log=lambda *_: None)["history"]]
-    print(f"[agree:{label}] reduced autoencoder losses cuda {hist['cuda']}")
+    print(f"[{tag}] {what} losses cuda {hist['cuda']}")
     print(f"        plain versions on the cpu    {hist['cpu']}")
     for a, b in zip(hist["cuda"], hist["cpu"]):
         if not abs(a - b) <= 1e-3 * abs(b):
-            raise AssertionError(f"{label}: cuda path {a} vs cpu path {b}")
+            raise AssertionError(f"{tag}: cuda path {a} vs cpu path {b}")
     return hist["cuda"]
+
+
+def agree_ae(label: str, cfg, loss: str) -> list:
+    """The reduced autoencoder (64-32-16-8 mirrored, N = 256) for 6 K-FAC
+    steps of one path on the card and on the CPU (``agree_run``)."""
+    from repro_torch.configs.autoencoder import reduced
+    from repro_torch.data.pipeline import SyntheticAutoencoderData
+    from repro_torch.models.mlp import MLP, autoencoder_dims
+    small = autoencoder_dims(reduced())
+
+    def build(where):
+        mlp = MLP(small, loss=loss, device=where)
+        return (mlp, mlp.init_params(torch.Generator().manual_seed(0)),
+                SyntheticAutoencoderData(small[0], 8, 256, seed=7,
+                                         device=where))
+
+    return agree_run(f"agree:{label}", "reduced autoencoder", build, cfg,
+                     loss)
 
 
 def ae_model():
@@ -1758,44 +1794,57 @@ def staggered_ns(cfg, steps: int) -> int:
 
 def ae_launches(label: str, stop: int, start: int = 0) -> dict:
     """The launch counts of a full-width autoencoder path's steps ``start``
-    to ``stop``, the warmup (re-)armed at ``start`` as
-    ``KFACPipeline.update`` arms it: refreshes at the first three steps and
-    every T3, the γ sweep every T2 (3 candidates, batched into the NS
-    launches; one rotate_rescale per candidate and layer in eigen mode; the
-    fused path applies candidate 0 only), per step a statistics pass on the
-    16 factor sides and an apply on the 8 layers.  blkdiag without
-    momentum launches what blkdiag does: the momentum tangent enters only
-    the quadratic model, which runs no kernel of ``repro_torch.kernels``.
-    tridiag launches blkdiag's factor_update and NS refresh and nothing
-    else: its cross moments, Ψ/Σ cache and apply are plain products and
-    cuSOLVER eigh, as in the reference.  The modes: τ1 and the Gaussian
-    loss launch what blkdiag does (the sub-batch changes the rows, not the
-    launches); ``stats_period=2`` updates the factors on the even steps
-    only; the staggered paths launch ns_step as ``staggered_ns`` counts
-    (eigen: no ns_step)."""
-    from repro_torch import kernels as K
+    to ``stop`` (``kfac_launches`` over its 8 layers).  The modes: τ1 and
+    the Gaussian loss launch what blkdiag does (the sub-batch changes the
+    rows, not the launches); ``stats_period=2`` updates the factors on the
+    even steps only; the staggered paths launch ns_step as
+    ``staggered_ns`` counts (eigen: no ns_step)."""
     cfg = all_paths().get(label, (ae_paths()["blkdiag"],))[0]
+    ns = None
+    if cfg.refresh_mode == "staggered":
+        if start:
+            raise ValueError("the staggered schedule is counted from step 0")
+        ns = staggered_ns(cfg, stop)
+    return kfac_launches(cfg, 8, stop, start, ns=ns)
+
+
+def kfac_launches(cfg, layers: int, stop: int, start: int = 0,
+                  ns=None) -> dict:
+    """The launch counts of steps ``start`` to ``stop`` of a K-FAC path on
+    a model of ``layers`` tagged full/full layers, the warmup (re-)armed at
+    ``start`` as ``KFACPipeline.update`` arms it: refreshes at the first
+    three steps and every T3, the γ sweep every T2 (3 candidates, batched
+    into the NS launches; one rotate_rescale per candidate and layer in
+    eigen mode; the fused path applies candidate 0 only), per step a
+    statistics pass on the 2·layers factor sides and an apply on the
+    layers.  ``fused_stats`` launches what the two-pass path does: each
+    side's contraction is the same one factor_update launch, moved into
+    the passes.  blkdiag without momentum launches what blkdiag does: the
+    momentum tangent enters only the quadratic model, which runs no kernel
+    of ``repro_torch.kernels``.  tridiag launches blkdiag's factor_update
+    and NS refresh and nothing else: its cross moments, Ψ/Σ cache and
+    apply are plain products and cuSOLVER eigh, as in the reference.
+    ``ns``: the path's ns_step count where its schedule is not the serial
+    one (``staggered_ns``)."""
+    from repro_torch import kernels as K
     steps = range(start, stop)
     sweeps = [s for s in steps if cfg.t2 > 0 and s > 0 and s % cfg.t2 == 0]
     refresh = [s for s in steps if s not in sweeps
                and (s - start < 3 or s % cfg.t3 == 0)]
     n = len(steps)
-    ns = (len(refresh) + len(sweeps)) * 16 * cfg.ns_iters
-    if cfg.refresh_mode == "staggered":
-        if start:
-            raise ValueError("the staggered schedule is counted from step 0")
-        ns = staggered_ns(cfg, stop)
-    pc = 8 * n + 2 * 8 * len(sweeps)
-    want = dict({name: 0 for name in K.WRAPPERS}, factor_update=16 * len(
-        [s for s in steps if s % cfg.stats_period == 0]))
+    if ns is None:
+        ns = (len(refresh) + len(sweeps)) * 2 * layers * cfg.ns_iters
+    pc = layers * n + 2 * layers * len(sweeps)
+    want = dict({name: 0 for name in K.WRAPPERS}, factor_update=2 * layers
+                * len([s for s in steps if s % cfg.stats_period == 0]))
     if cfg.inv_mode == "eigen":
         return dict(want, rotate_rescale=pc, matmul_rescale=pc,
                     matmul=3 * pc)
     if cfg.inv_mode == "tridiag":
         return dict(want, ns_step=ns, matmul=2 * ns)
     if not cfg.use_rescale:
-        return dict(want, ns_step=ns, precond_momentum=8 * n,
-                    axpy_momentum=8 * n, matmul=2 * ns + 8 * n)
+        return dict(want, ns_step=ns, precond_momentum=layers * n,
+                    axpy_momentum=layers * n, matmul=2 * ns + layers * n)
     return dict(want, precondition=pc, ns_step=ns, matmul=2 * (pc + ns))
 
 
@@ -1822,9 +1871,10 @@ def fit_timed(opt, mlp, params, data, steps: int, log_every: int = 5):
 
 
 def autoencoder_main(label: str, steps: int = AE_STEPS, mlp=None,
-                     params=None, data=None) -> dict:
+                     params=None, data=None, cfg=None) -> dict:
     """``Trainer.fit`` of the full-width autoencoder on one path (phase 5
-    or the modes phase, ``all_paths()``), the launch counters zeroed just
+    or the modes phase, ``all_paths()``; or ``cfg``, a Bernoulli path of
+    the "conv" phase), the launch counters zeroed just
     before and read just after: exact counts, the loss finite and falling,
     per-step host times, the largest step after the warmup but the
     sweep's, and peak memory.  ``python3 -c 'import chip_smoke as c;
@@ -1834,10 +1884,14 @@ def autoencoder_main(label: str, steps: int = AE_STEPS, mlp=None,
     from repro_torch.optimizers.kfac import kfac
     if mlp is None:
         mlp, params, data = ae_model()
-    cfg, loss = all_paths()[label]
+    if cfg is None:
+        cfg, loss = all_paths()[label]
+        want = ae_launches(label, steps)
+    else:
+        loss = "bernoulli"
+        want = kfac_launches(cfg, 8, steps)
     if loss != mlp.loss_kind:
         mlp = MLP(mlp.dims, loss=loss, device="cuda")
-    want = ae_launches(label, steps)
     out, step_ms, launches, peak, resident = fit_timed(
         kfac(mlp, cfg, family=loss, device="cuda"), mlp, params, data,
         steps)
@@ -2689,6 +2743,216 @@ def whisper_resume(d: str) -> dict:
             "refresh_steps": refresh}
 
 
+# ---- the "conv" phase: KFC convolutions and fused statistics --------------
+
+CONV_N = 512                  # images a step (bench_optimizer_race.py:63)
+CONV_SEED = 7                 # the data's seed; weights from seed 0
+# one conv classifier step's factor sides at full width and N = 512:
+# (label, rows, d), the im2col rows of each conv's A side and the outputs
+# of each layer's G side
+CONV_SIDES = [("conv0 A", 512 * 1024, 28), ("conv0 G", 512 * 1024, 32),
+              ("conv1 A", 512 * 256, 289), ("conv1 G", 512 * 256, 32),
+              ("conv2 A", 512 * 64, 289), ("conv2 G", 512 * 64, 64),
+              ("head A", 512, 65), ("head G", 512, 10)]
+CONV_TIMED = ("conv0 A", "conv1 A")
+
+
+# the conv classifier's fused chain: phase 5's chain at fixed_lr 0.5 and
+# kl_clip 0.1 (the autoencoder's 0.02 and 1e-3 leave it at chance); chosen
+# by tools/conv_lr_sweep.py on the CPU at N = 64 and 256
+CONV_CHAIN = dict(fixed_lr=0.5, kl_clip=0.1)
+# every path's last loss must sit this far under the classes' ln 10
+CONV_LOSS_MARGIN = 0.5
+
+
+def conv_paths() -> dict:
+    """The conv classifier's paths: phase 5's blkdiag (ns) and eigen
+    configurations and its fused chain at ``CONV_CHAIN``, each two-pass and
+    with ``fused_stats`` (label suffix ``_fs``)."""
+    base = ae_paths()
+    base["fused"] = dataclasses.replace(base["fused"], **CONV_CHAIN)
+    out = {}
+    for label in ("blkdiag", "eigen", "fused"):
+        out[label] = base[label]
+        out[f"{label}_fs"] = dataclasses.replace(base[label],
+                                                 fused_stats=True)
+    return out
+
+
+def conv_model(cfg, device: str, n: int = CONV_N):
+    """The conv classifier, its weights from seed 0 and its synthetic
+    images (``SyntheticImageData``, seed 7), on ``device``."""
+    from repro_torch.data.pipeline import SyntheticImageData
+    from repro_torch.models.convnet import ConvNet
+    net = ConvNet(cfg, device=device)
+    params = net.init_params(torch.Generator().manual_seed(0))
+    data = SyntheticImageData(cfg.image_size, cfg.channels, cfg.n_classes,
+                              n, seed=CONV_SEED, device=device)
+    return net, params, data
+
+
+def agree_conv(label: str, cfg) -> list:
+    """The reduced conv classifier (8×8×2 images, convs (8, 3, 1) and (8,
+    3, 2), 4 classes, N = 128) for 6 K-FAC steps of one path on the card
+    and on the CPU (``agree_run``, phase 4's tolerance)."""
+    from repro_torch.configs.conv_classifier import reduced
+    return agree_run(f"conv:agree:{label}", "reduced conv classifier",
+                     lambda where: conv_model(reduced(), where, n=128), cfg,
+                     "categorical")
+
+
+def conv_kernel_rows(dev, rows: dict) -> None:
+    """factor_update at every factor side of one conv classifier step
+    (``CONV_SIDES``: im2col rows of 28 and 289 features, deep K over an
+    output of one or a few tiles) against its plain version at beta = 0
+    and 0.95, held as phase 3 holds it (the errors fold into the row's
+    ``max_abs_err``); then conv0's and conv1's A sides timed beside addmm,
+    with their launch plans (``gemm_plan.triangle_plan``) and bounds, as
+    the row's cases ``conv0`` and ``conv1``."""
+    from repro_torch.kernels import gemm_plan
+    from repro_torch.kernels.factor_update import (factor_update,
+                                                   factor_update_ref)
+    row = rows["factor_update"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    errs = []
+    for label, n, d in CONV_SIDES:
+        x = torch.tanh(torch.randn(n, d, generator=g, device=dev))
+        y = torch.tanh(torch.randn(512, d, generator=g, device=dev))
+        c = y.T @ y / 512 + 0.1 * torch.eye(d, device=dev)
+        for e in (0.0, 0.95):
+            eps = torch.tensor(e, device=dev)
+            a = (1 - eps) / n
+            prod = factor_update_ref(x, c, alpha=a, beta=0.0)
+            compare(f"factor_update {label} X({n},{d}) beta={e}",
+                    factor_update(x, c, alpha=a, beta=eps),
+                    factor_update_ref(x, c, alpha=a, beta=eps), errs,
+                    scale=prod.abs().max().item())
+        if label not in CONV_TIMED:
+            continue
+        p = gemm_plan.triangle_plan(d, d, False, n,
+                                    gemm_plan.sm_count(dev.index or 0))
+        eps = torch.tensor(0.95, device=dev)
+        case = dict(
+            unit=f"{label} of the conv classifier, X ({n}, {d})",
+            plan=(f"tile {p.tile}, {p.tiles} tiles a side, {p.blocks} "
+                  f"blocks, chunk {p.chunk}, splits {p.splits}"),
+            **timings(lambda: factor_update(x, c, alpha=(1 - eps) / n,
+                                            beta=eps),
+                      lambda: factor_update_ref(x, c, alpha=(1 - eps) / n,
+                                                beta=eps),
+                      lambda: torch.addmm(c, x.T, x, beta=0.95,
+                                          alpha=0.05 / n)),
+            bound=bound_ms(float(n) * d * (d + 1), 4.0 * (n * d + 2 * d * d)))
+        row["cases"][label.split()[0]] = case
+        print(f"  factor_update {label} X({n},{d}): {case['plan']}; device "
+              f"{fmt_ms(case['ms'])} ms, plain {fmt_ms(case['plain_ms'])}, "
+              f"addmm {fmt_ms(case['library_ms'])}; bound "
+              f"{case['bound'][0]:.4f} ({case['bound'][1]}; "
+              f"{case['bound'][0] / case['ms']:.1%})")
+    row["max_abs_err"] = max(row["max_abs_err"], *errs)
+
+
+def conv_main(label: str, cfg, steps: int = AE_STEPS) -> dict:
+    """``Trainer.fit`` of the full-width conv classifier (32×32×3 images,
+    convs (32, 3, 1), (32, 3, 2), (64, 3, 2), 10 classes; N = 512 a step)
+    on one path, the launch counters zeroed just before and read just
+    after: exact counts (``kfac_launches`` over its 4 layers), the loss
+    finite and its last value under ``(1 − CONV_LOSS_MARGIN)·ln 10`` (the
+    data alone moves a step's loss by ~0.05 about ln 10), per-step host
+    times of ``opt.update``, the accuracy, peak memory."""
+    from repro_torch.configs.conv_classifier import CONFIG as CONV
+    from repro_torch.optimizers.kfac import kfac
+    net, params, data = conv_model(CONV, "cuda")
+    opt = kfac(net, cfg, family="categorical", device="cuda")
+    if cfg.fused_stats and opt.engine.fused_names != set(net.metas):
+        raise AssertionError(f"conv {label}: fused layers "
+                             f"{opt.engine.fused_names}")
+    want = kfac_launches(cfg, len(net.metas), steps)
+    out, step_ms, launches, peak, resident = fit_timed(opt, net, params,
+                                                       data, steps)
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    acc = [h["accuracy"] for h in hist]
+    plain = sorted(t for i, t in enumerate(step_ms)
+                   if i not in (0, AE_SWEEP, *AE_REFRESH))
+    print(f"[conv:{label}] full width {CONV.image_size}x{CONV.image_size}x"
+          f"{CONV.channels}, convs {list(CONV.conv)}, N={CONV_N}, {steps} "
+          f"steps, {net.n_params()} parameters")
+    print(f"  per-step ms: {[round(t, 3) for t in step_ms]}")
+    print(f"  plain-step median {plain[len(plain) // 2]:.3f}; refresh "
+          f"steps {[round(step_ms[i], 3) for i in AE_REFRESH]}; sweep step "
+          f"{step_ms[AE_SWEEP]:.3f}; peak memory {peak / 2 ** 20:.1f} MiB, "
+          f"of which {resident / 2 ** 20:.1f} MiB was allocated before")
+    print(f"  losses: first {losses[0]:.4f}, last {losses[-1]:.4f}; "
+          f"accuracy first {acc[0]:.4f}, last {acc[-1]:.4f}")
+    print(f"  launches: {launches}")
+    ceiling = (1.0 - CONV_LOSS_MARGIN) * math.log(CONV.n_classes)
+    if (not all(math.isfinite(v) for v in losses)
+            or not losses[-1] < ceiling):
+        raise AssertionError(f"conv {label}: loss not finite or its last "
+                             f"value not under {ceiling:.4f}: {losses}")
+    if launches != want:
+        raise AssertionError(f"conv {label}: launch counts {launches}, "
+                             f"expected {want}")
+    return {"steps": steps, "n_images": CONV_N, "step_ms": step_ms,
+            "plain_step_ms_median": plain[len(plain) // 2],
+            "refresh_step_ms": {i: step_ms[i] for i in AE_REFRESH},
+            "sweep_step_ms": step_ms[AE_SWEEP], "peak_mem_bytes": peak,
+            "resident_bytes_before": resident, "losses": losses,
+            "accuracy": acc, "launches": launches}
+
+
+def fused_first_pass(label: str, mlp, params, data) -> float:
+    """One statistics pass of the full-width autoencoder from the initial
+    state, two-pass and with ``fused_stats``, same uniforms: every factor
+    within 1e-5 of max|two-pass factor| (the same kernel sums the same
+    rows; only the blend's rounding differs).  Returns the largest
+    relative difference."""
+    from repro_torch.optimizers.kfac import KFACEngine
+    from repro_torch.training.trainer import seeded_noise
+    cfg = ae_paths()[label]
+    batch = data.batch(0)
+    noise = seeded_noise(0, "cuda")
+    factors = []
+    for fused in (False, True):
+        eng = KFACEngine(mlp, dataclasses.replace(cfg, fused_stats=fused),
+                         family="bernoulli", device="cuda")
+        state = eng.init(params, batch)
+        state, _, _ = eng.stats_grads(state, params, batch,
+                                      lambda shape: noise(0, shape))
+        factors.append(state.factors)
+    worst = 0.0
+    for name, two in factors[0].items():
+        for side in ("a", "g"):
+            want, got = two[side], factors[1][name][side]
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            worst = max(worst, rel)
+            if not rel <= 1e-5:
+                raise AssertionError(f"fused {label} {name}.{side}: "
+                                     f"{rel:.3e} of the two-pass factor")
+    print(f"[conv:ae_fs_{label}] first statistics pass, fused against "
+          f"two-pass factors: max relative difference {worst:.3e}")
+    return worst
+
+
+def fused_trajectory(label: str, fused: list, two: list) -> float:
+    """The full-width autoencoder's 25 losses with ``fused_stats`` against
+    phase 5's two-pass run of the path: equal at step 0 (the same
+    parameters), then queue C's limit of ROADMAP (5e-3 relative through
+    step 19, 2% after).  Returns the largest relative difference."""
+    worst = 0.0
+    for step, (a, b) in enumerate(zip(fused, two)):
+        rel = abs(a - b) / abs(b)
+        worst = max(worst, rel)
+        lim = 0.0 if step == 0 else 5e-3 if step < 20 else 2e-2
+        if not rel <= lim:
+            raise AssertionError(f"fused {label}: step {step} loss {a} vs "
+                                 f"two-pass {b} ({rel:.3e} > {lim:g})")
+    print(f"[conv:ae_fs_{label}] 25 losses against phase 5's two-pass run: "
+          f"max relative difference {worst:.3e}")
+    return worst
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. device ---------------------------------------------------
@@ -3164,6 +3428,28 @@ def main() -> None:
     main_out["ckpt_preempt"] = ckpt_preempt(mlp, params, data)
     print(f"[time] ckpt phase (autoencoder) done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    # ---- conv: KFC convolutions and backward-pass fused statistics ----
+    t_conv = time.perf_counter()
+    conv_kernel_rows(dev, rows)
+    conv_out = {"agree": {label: agree_conv(label, cfg)
+                          for label, cfg in conv_paths().items()}}
+    for label, cfg in conv_paths().items():
+        conv_out[label] = conv_main(label, cfg, steps)
+        launches_by_path[f"conv_{label}"] = conv_out[label]["launches"]
+    for label in ("blkdiag", "eigen"):
+        key = f"ae_fs_{label}"
+        first = fused_first_pass(label, mlp, params, data)
+        main_out[key] = autoencoder_main(
+            key, steps, mlp, params, data,
+            cfg=dataclasses.replace(paths[label], fused_stats=True))
+        main_out[key]["first_pass_max_rel"] = first
+        main_out[key]["max_rel_vs_two_pass"] = fused_trajectory(
+            label, main_out[key]["losses"], main_out[label]["losses"])
+        launches_by_path[key] = main_out[key]["launches"]
+    conv_out["phase_s"] = time.perf_counter() - t_conv
+    print(f"[time] conv phase done at "
+          f"{time.perf_counter() - t_start:.1f} s ({conv_out['phase_s']:.1f}"
+          f" s)")
     # ---- 6. the serve path -------------------------------------------
     # full-width llama3.2-1b, the port's own weights from seed 0: 32
     # greedy requests, prompts of 64..1024 tokens (all lengths distinct, so
@@ -3318,6 +3604,7 @@ def main() -> None:
                       "whisper_agree_losses": whisper_agree}))
     print(json.dumps({"serve": serve_out, "serve_agree": serve_agree}))
     print(json.dumps({"race": race_out}))
+    print(json.dumps({"conv": conv_out}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -116,7 +116,6 @@ class ModelConfig:
 _PORTED_ONLY = {
     "inv_mode": ("blkdiag", "tridiag", "eigen"),
     "refresh_mode": ("serial", "staggered"),
-    "fused_stats": (False,),
 }
 
 
@@ -153,7 +152,9 @@ class KFACConfig:
     use_rescale: bool = True          # exact-F alpha rescale     [S6.4]
     fixed_lr: float = 0.05            # used only when use_rescale=False
 
-    fused_stats: bool = False
+    fused_stats: bool = False         # contract the factor statistics
+                                      # inside the passes [S5]
+                                      # (core/fused.py; not on an LM yet)
     fixed_momentum: float = 0.0       # use_rescale=False only: heavy-ball
                                       # mu for the fused update chain
     clip_delta_norm: float = 0.0      # use_rescale=False only: global-norm

@@ -10,7 +10,10 @@ Mirrors the ``full`` and ``diag`` layouts of ``repro/core/blocks/kron.py``:
         on both sides, ``C ← ε C + α XᵀX`` with α = (1−ε)/n for Ā and
         (1−ε)·n for G (per-token g = n·cot, so G = (1/n) Σ g gᵀ =
         n Σ cot cotᵀ); a stacked layer's (S, N, d) records go in one
-        launch, grid z over S;
+        launch, grid z over S.  Under ``fused_stats`` the sums arrive
+        contracted (``{"aa"}`` records, ``{"gg"}`` gprobes: the same
+        kernel ran in the passes, ``core/fused.py``) and take the base
+        class's blend of the shared ``stats_contrib``;
       - the two-sided apply through ``kernels.precond.precondition``
         (stacked: the matmul kernel's batch dim);
       - the EKFAC eigenbasis apply through ``kernels.rotate_rescale``;
@@ -36,8 +39,28 @@ from repro_torch.kernels.rotate_rescale import rotate_rescale
 from repro_torch.kernels.update_chain import precond_momentum as chain_kernel
 
 
+class KroneckerPair(CurvatureBlock):
+    """The per-side statistics both layouts share (the reference's
+    ``KroneckerPair.stats_contrib``): a record's raw ``a`` or its in-forward
+    contraction ``{"aa"}`` (``fused_stats``), and a probe cotangent or the
+    backward's ``{"gg"}`` contraction."""
+
+    def stats_contrib(self, rec, gprobe, n):
+        m = self.meta
+        if "aa" in rec:
+            a_c = rec["aa"] / n
+        else:
+            a_c = F.outer_sum(rec["a"], m.a_kind,
+                              stacked=m.n_stack > 0) / n
+        if isinstance(gprobe, dict):
+            g_c = gprobe["gg"] * float(n)
+        else:
+            g_c = F.g_from_cotangent(gprobe, m, n)
+        return {"a": a_c, "g": g_c}
+
+
 @register
-class DiagFactor(CurvatureBlock):
+class DiagFactor(KroneckerPair):
     """A diagonal factor on at least one side (vocab-scale dims); the
     reference's plain per-side statistics."""
 
@@ -48,12 +71,6 @@ class DiagFactor(CurvatureBlock):
     def handles(cls, meta):
         return "diag" in (meta.a_kind, meta.g_kind)
 
-    def stats_contrib(self, rec, gprobe, n):
-        m = self.meta
-        return {"a": F.outer_sum(rec["a"], m.a_kind,
-                                 stacked=m.n_stack > 0) / n,
-                "g": F.g_from_cotangent(gprobe, m, n)}
-
 
 def _rows(x, stacked: bool):
     """Records (..., d) as the kernel's ([S,] N, d) rows."""
@@ -62,7 +79,7 @@ def _rows(x, stacked: bool):
 
 
 @register
-class DenseKronecker(CurvatureBlock):
+class DenseKronecker(KroneckerPair):
     """Dense ``full``/``full`` Kronecker pair — the kernels' hot path."""
 
     kinds = ("dense",)
@@ -73,14 +90,28 @@ class DenseKronecker(CurvatureBlock):
         return meta.a_kind == "full" and meta.g_kind == "full"
 
     def _g_side(self, old_g, gprobe, n, eps):
+        """G side of the decayed blend: per-token g = n·cot, so G =
+        n Σ cot cotᵀ."""
         cot = _rows(gprobe.detach(), self.meta.n_stack > 0)
         return factor_update(cot, old_g, alpha=(1.0 - eps) * n, beta=eps)
 
+    def _fused(self, rec, gprobe) -> bool:
+        """Whether the layer's statistics came contracted in the passes
+        (``fused_stats``): an ``{"aa"}`` record and a ``{"gg"}`` gprobe
+        always come together, so a mixed pair is refused."""
+        fused_a, fused_g = "aa" in rec, isinstance(gprobe, dict)
+        if fused_a != fused_g:
+            raise ValueError(f"{self.meta.name}: an {{'aa'}} record and a "
+                             "{'gg'} gprobe come together (fused_stats)")
+        return fused_a
+
     def update_factors(self, old, rec, gprobe, n, eps):
+        if self._fused(rec, gprobe):     # the base class's plain blend
+            return super().update_factors(old, rec, gprobe, n, eps)
         x_a = _rows(rec["a"], self.meta.n_stack > 0)
-        return {"a": factor_update(x_a, old["a"], alpha=(1.0 - eps) / n,
-                                   beta=eps),
-                "g": self._g_side(old["g"], gprobe, n, eps)}
+        a_new = factor_update(x_a, old["a"], alpha=(1.0 - eps) / n,
+                              beta=eps)
+        return {"a": a_new, "g": self._g_side(old["g"], gprobe, n, eps)}
 
     def precondition(self, inv, v):
         return precond_kernel(inv["a_inv"], v.float(), inv["g_inv"])

@@ -66,6 +66,37 @@ class SyntheticLMData:
                 for k, v in self.numpy_batch(step).items()}
 
 
+class SyntheticImageData:
+    """Class-template images for the conv classifier: ``y`` picks one of
+    ``n_classes`` fixed random templates, ``x`` is that template plus pixel
+    noise — learnable, deterministic per (seed, step); the reference's
+    numpy draws, bitwise.  Each batch is drawn on the host, as in the
+    reference, then moved to the device: x ``(B, H, W, C)`` float32, y
+    ``(B,)`` int32."""
+
+    def __init__(self, image_size: int, channels: int, n_classes: int,
+                 n: int, seed: int = 0, noise: float = 0.3, device="cuda"):
+        rng = np.random.default_rng(seed)
+        self.templates = rng.standard_normal(
+            (n_classes, image_size, image_size, channels)).astype(np.float32)
+        self.n_classes, self.n, self.noise = n_classes, n, noise
+        self.seed = seed
+        self.device = resolve_device(device)
+
+    def numpy_batch(self, step: int, batch_size: Optional[int] = None):
+        bs = batch_size or self.n
+        rng = np.random.default_rng((self.seed, step))
+        y = rng.integers(0, self.n_classes, size=(bs,)).astype(np.int32)
+        x = (self.templates[y]
+             + self.noise * rng.standard_normal(
+                 self.templates[y].shape).astype(np.float32))
+        return {"x": x, "y": y}
+
+    def batch(self, step: int, batch_size: Optional[int] = None):
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in self.numpy_batch(step, batch_size).items()}
+
+
 def make_audio_batch(base, n_mels: int, n_frames: int, step: int = 0):
     """Raw log-mel frames (B, n_frames, n_mels) for the audio frontend,
     drawn from ``default_rng((11, step))`` as the reference draws them, on

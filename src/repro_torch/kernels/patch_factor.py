@@ -35,12 +35,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.patches import (conv_out_len, conv_pad_amounts,
+                                      patch_rows)
 from repro_torch.kernels import _build, gemm_plan
 
 
 def patch_geometry(x_shape, taps: int, stride: int, padding: str):
     """(lo, t_out) of a 1-D conv over x of shape (B, T, C)."""
-    from repro_torch.models.conv import conv_out_len, conv_pad_amounts
     t = x_shape[1]
     return (conv_pad_amounts(t, taps, stride, padding)[0],
             conv_out_len(t, taps, stride, padding))
@@ -56,11 +57,7 @@ def patch_factor_update_ref(x, c, *, taps: int, stride: int, padding: str,
                             has_bias: bool, alpha, beta):
     """Plain PyTorch version: explicit patches, ``append_homog``, then
     ``beta·C + alpha·P̂ᵀP̂`` (the CPU path and the card's oracle)."""
-    from repro_torch.models.conv import append_homog, extract_patches
-    p = extract_patches(x.float(), (taps,), (stride,), padding)
-    p = p.reshape(-1, p.shape[-1])
-    if has_bias:
-        p = append_homog(p)
+    p = patch_rows(x.float(), (taps,), (stride,), padding, has_bias)
     return alpha * (p.T @ p) + beta * c.float()
 
 

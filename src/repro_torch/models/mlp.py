@@ -64,6 +64,8 @@ class MLP:
             for i in range(self.n_layers)
         }
         self.layer_order = [f"layer{i}" for i in range(self.n_layers)]
+        self.contract_map = {}            # fused_stats hooks (core/fused)
+        self.gcontract_map = {}
 
     # -- params ---------------------------------------------------------
     def init_params(self, generator: Optional[torch.Generator] = None,
@@ -122,7 +124,7 @@ class MLP:
         contract.  ``rng`` supplies the uniforms behind the sampled targets;
         with ``rng=None`` no targets are drawn and ``loss_sampled`` is None
         (the reference draws them and discards the result)."""
-        tg = Tagger(mode, probes)
+        tg = Tagger(mode, probes, self.contract_map, self.gcontract_map)
         z = self.logits(params, batch["x"], tg)
         lt = torch.mean(self._nll(z, batch["y"]))
         ls = None

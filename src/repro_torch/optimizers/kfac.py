@@ -4,12 +4,15 @@
 ``refresh_mode="serial"`` or ``"staggered"`` (the legacy
 ``staggered_inverse=True`` too), τ1-subsampled statistics and
 ``stats_period``, with the exact-F re-scaling (``use_rescale=True``) or the
-fused fixed-lr chain (``use_rescale=False``).
-Models: the MLP autoencoders, Bernoulli or Gaussian
-(``core/fisher.py::quad_logits``), and the LM
+fused fixed-lr chain (``use_rescale=False``), and the statistics
+contracted inside the passes (``fused_stats=True``, ``core/fused.py``; not
+on an LM yet).
+Models: the MLP autoencoders, Bernoulli or Gaussian, and the conv
+classifier, categorical (``core/fisher.py::quad_logits``), and the LM
 (``quad_lm``; trained so far: whisper, blkdiag with the exact-F
-re-scaling; ``inv_mode="tridiag"`` on an LM, which has no
-``layer_order``, runs the block-diagonal path, as in the reference).
+re-scaling; ``inv_mode="tridiag"`` on a model without ``layer_order``, an
+LM or the conv classifier, runs the block-diagonal path, as in the
+reference).
 Parameters are nested trees (the LM's stacked ``blocks``),
 each tagged weight addressed by its block's ``param_path``; an untagged
 parameter (a norm scale) gets the reference's diagonal curvature, the
@@ -22,7 +25,9 @@ over :class:`~repro_torch.core.transform.KFACState`:
                         true labels, then the model-sampled g statistics on
                         the τ1 sub-batch (``_sub_batch``: every
                         round(1/τ1)-th row), then the decayed factor update
-                        (S5) through the ``factor_update`` kernel.
+                        (S5) through the ``factor_update`` kernel (with
+                        ``fused_stats`` the same kernel contracts each
+                        side inside the passes, and the update blends).
   ``grads_only``        the other steps: the gradient pass alone; factors,
                         diagonals and ``k_stats`` stay as they were.
   ``refresh_inverses``  every T3 steps (and the first 3): damped inverses
@@ -71,6 +76,7 @@ the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, List, NamedTuple, Optional
@@ -121,6 +127,10 @@ class KFACEngine:
                 "eigen mode and the fused fixed-lr chain on an LM are not "
                 "ported yet (only inv_mode='blkdiag' or 'tridiag' with "
                 "use_rescale=True)")
+        if self.is_lm and cfg.fused_stats:
+            raise NotImplementedError(
+                "fused_stats on an LM is not ported yet (the MLP and the "
+                "conv classifier only)")
         self.tagged = {m.param_path for m in self.metas.values()}
         self.blocks = build_blocks(self.metas, cfg, self.device)
         self.eigen = cfg.inv_mode == "eigen"
@@ -128,6 +138,24 @@ class KFACEngine:
                         and hasattr(model, "layer_order"))
         self.chain = (TridiagChain(model, cfg, self.device) if self.tridiag
                       else None)
+        # backward-pass fusion of the factor statistics (core/fused): the A
+        # side rides the forward through the model's contract_map hooks,
+        # the G side the backward through the {"gg"} probes (tridiag's
+        # chain needs the raw records).  The engine holds its hooks and
+        # puts them on the model's maps for its statistics pass alone
+        # (``_hooked``), where the reference installs them for good: the
+        # model stays as it was, so another engine on it is not affected.
+        self.fused = bool(cfg.fused_stats) and not self.tridiag
+        self.contract, self.gcontract = {}, {}
+        if self.fused:
+            from repro_torch.core import fused as FU
+            for n, m in self.metas.items():
+                if FU.fused_eligible(m):
+                    mk = (FU.conv_a_contract if m.kind == "conv"
+                          else FU.dense_a_contract)
+                    self.contract[n] = mk(m)
+                    self.gcontract[n] = FU.g_contract(m)
+        self.fused_names = set(self.contract)
 
     def n_tokens(self, batch) -> int:
         """The global N that normalizes every factor: the batch size, or an
@@ -138,8 +166,35 @@ class KFACEngine:
         b, t = batch["tokens"].shape
         return int(b * t)
 
+    @contextlib.contextmanager
+    def _hooked(self):
+        """The fused layers' contraction hooks on the model's maps for the
+        forward of one statistics pass (the G hooks ride its autograd graph
+        into the backward); the maps are put back as they were after."""
+        if not self.fused_names:
+            yield
+            return
+        maps = (self.model.contract_map, self.model.gcontract_map)
+        saved = [dict(m) for m in maps]
+        maps[0].update(self.contract)
+        maps[1].update(self.gcontract)
+        try:
+            yield
+        finally:
+            for live, old in zip(maps, saved):
+                live.clear()
+                live.update(old)
+
     def _probes(self, batch):
-        return self.model.make_probes(batch)
+        probes = self.model.make_probes(batch)
+        if self.fused_names:
+            # fused layers swap the (N, d_out) zero probe for a (d_out,
+            # d_out) one whose gradient is the contracted second moment
+            from repro_torch.core import fused as FU
+            dev = batch["x"].device
+            for n in self.fused_names:
+                probes[n] = FU.gg_probe(self.metas[n], dev)
+        return probes
 
     def _is_tagged(self, path) -> bool:
         return tuple(path) in self.tagged
@@ -197,26 +252,33 @@ class KFACEngine:
         return T.tree_map(lambda x: x[::stride], batch)
 
     def _grads(self, params, batch):
-        """The gradient pass on the full batch (plain mode): (loss, grads)."""
+        """The gradient pass on the full batch (plain mode): (loss, grads,
+        the model's metrics, detached)."""
         p1 = T.tree_map(lambda v: v.detach().requires_grad_(True), params)
-        (lt, _), _ = self.model.loss(p1, None, batch, None, mode="plain")
+        (lt, _), aux = self.model.loss(p1, None, batch, None, mode="plain")
         grads = T.tree_unflatten_like(params, torch.autograd.grad(
             lt, T.tree_leaves(p1)))
-        return lt.detach(), grads
+        metrics = {k: v.detach() for k, v in aux["metrics"].items()}
+        return lt.detach(), grads, metrics
 
     def stats_grads(self, state: KFACState, params, batch, rng):
         # ---- pass 1: gradients on the full batch (plain mode) ----
-        lt, grads = self._grads(params, batch)
+        lt, grads, metrics = self._grads(params, batch)
 
         # ---- pass 2: τ1-subsampled statistics with sampled targets ----
         sub = self._sub_batch(batch)
         probes = self._probes(sub)
         n = self.n_tokens(sub)
         frozen = T.tree_map(torch.Tensor.detach, params)
-        (_, ls), aux = self.model.loss(frozen, probes, sub, rng,
-                                       mode="collect")
-        gprobes = dict(zip(probes, torch.autograd.grad(
-            ls, list(probes.values()))))
+        with self._hooked():
+            (_, ls), aux = self.model.loss(frozen, probes, sub, rng,
+                                           mode="collect")
+        # a fused layer's probe is {"gg": ...}; its gradient comes back so
+        leaves = [p["gg"] if isinstance(p, dict) else p
+                  for p in probes.values()]
+        gprobes = {name: ({"gg": g} if isinstance(p, dict) else g)
+                   for (name, p), g in zip(
+                       probes.items(), torch.autograd.grad(ls, leaves))}
         recs = aux["recs"]
 
         k = state.k_stats + 1
@@ -240,14 +302,14 @@ class KFACEngine:
 
         state = state.replace(factors=factors, diag=diag, k_stats=k,
                               loss_prev=lt)
-        return state, grads, {"loss": lt, "loss_sampled": ls.detach()}
+        return state, grads, dict(metrics, loss_sampled=ls.detach())
 
     def grads_only(self, state: KFACState, params, batch, rng):
         """The gradient pass without the statistics pass (the steps that
         ``stats_period`` skips): no target is drawn, and the factors,
         diagonals and ``k_stats`` stay as they were."""
-        lt, grads = self._grads(params, batch)
-        return state.replace(loss_prev=lt), grads, {"loss": lt}
+        lt, grads, metrics = self._grads(params, batch)
+        return state.replace(loss_prev=lt), grads, metrics
 
     # ------------------------------------------------------------------
     # inverses

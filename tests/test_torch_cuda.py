@@ -5,7 +5,10 @@ staggered refresh's three steps after its warmup), a full-width blkdiag
 resume from a checkpoint with exact launches, checkpoints written from the
 card restored on the CPU bitwise, the eigen path's bundle bitwise its
 state, a reduced llama serving run on each decode route and a reduced
-gemma2 one.
+gemma2 one; factor_update at the conv classifier's factor sides, a fused
+statistics pass against a two-pass one (conv classifier and autoencoder),
+the fused G probe and a fused 1-D conv's patch_factor contraction, and 6
+reduced conv classifier steps cuda vs cpu.
 No JAX: the machine with the card has none.
 
 Every test is marked ``cuda`` and skips, inside its body, when
@@ -1313,3 +1316,143 @@ def test_eigen_bundle_from_the_card_is_the_state(tmp_path):
     for name, eig in out["state"].inv.items():
         for k in ("qa", "qg", "s", "damp"):
             assert torch.equal(bundle.eigen[name][k], eig[k]), (name, k)
+
+
+# ---------------------------------------------------------------------------
+# KFC convolutions and the backward-pass fused statistics
+# ---------------------------------------------------------------------------
+
+# one full-width conv classifier step's factor sides at N = 512 images:
+# the im2col rows of conv0, conv1 and conv2, each layer's G side, the head
+CONV_SIDES = [(524288, 28), (524288, 32), (131072, 289), (131072, 32),
+              (32768, 289), (32768, 64), (512, 65), (512, 10)]
+
+
+@pytest.mark.parametrize("n,d", CONV_SIDES)
+def test_factor_update_conv_shapes_on_card(n, d):
+    """Deep K over an output of one or a few tiles, at beta = 0 and 0.95,
+    and the fused contraction's alpha = 1, beta = 0 into a zero."""
+    g = _card()
+    x = torch.tanh(torch.randn(n, d, generator=g, device="cuda"))
+    c = _spd(g, d)
+    for e in (0.0, 0.95):
+        eps = torch.tensor(e, device="cuda")
+        _factor_close(x, c, (1 - eps) / n, eps)
+    _factor_close(x, torch.zeros(d, d, device="cuda"), 1.0, 0.0)
+
+
+def _stats_pass(model, inv_mode, fused):
+    """One statistics pass from the initial state on the card: the
+    full-width conv classifier at 64 images or the full-width autoencoder
+    at 1024 rows; the factors and the launch counts."""
+    from repro_torch.configs.conv_classifier import CONFIG as CONV
+    from repro_torch.data.pipeline import SyntheticImageData
+    from repro_torch.models.convnet import ConvNet
+    from repro_torch.optimizers.kfac import KFACEngine
+    cfg = KFACConfig(inv_mode=inv_mode, fused_stats=fused)
+    if model == "conv":
+        net = ConvNet(CONV, device="cuda")
+        family = "categorical"
+        batch = SyntheticImageData(CONV.image_size, CONV.channels,
+                                   CONV.n_classes, 64, seed=7,
+                                   device="cuda").batch(0)
+    else:
+        net = MLP(DIMS, device="cuda")
+        family = "bernoulli"
+        batch = SyntheticAutoencoderData(DIMS[0], 8, 1024, seed=7,
+                                         device="cuda").batch(0)
+    params = net.init_params(torch.Generator().manual_seed(0))
+    eng = KFACEngine(net, cfg, family=family, device="cuda")
+    assert eng.fused_names == (set(net.metas) if fused else set())
+    state = eng.init(params, batch)
+    K.reset_launches()
+    state, _, _ = eng.stats_grads(
+        state, params, batch, lambda shape: torch.rand(
+            shape, generator=torch.Generator().manual_seed(1)).cuda())
+    torch.cuda.synchronize()
+    return state.factors, K.launches(), len(net.metas)
+
+
+@pytest.mark.parametrize("inv_mode", ["blkdiag", "eigen"])
+@pytest.mark.parametrize("model", ["conv", "mlp"])
+def test_fused_stats_pass_matches_two_pass_on_card(model, inv_mode):
+    """The fused statistics pass against the two-pass one on the card:
+    every factor within 1e-5 of its scale (the same kernel sums the same
+    rows), and the same launches: one factor_update a factor side."""
+    _card()
+    two, n_two, layers = _stats_pass(model, inv_mode, False)
+    one, n_one, _ = _stats_pass(model, inv_mode, True)
+    assert n_one == n_two == dict({k: 0 for k in K.WRAPPERS},
+                                  factor_update=2 * layers)
+    for name in two:
+        for side in ("a", "g"):
+            _close(one[name][side], two[name][side], tol=1e-5)
+
+
+def test_apply_gprobe_on_card():
+    """The fused G probe on CUDA tensors: the probe's gradient, through
+    the factor_update kernel, against Σ cot cotᵀ of the raw cotangent."""
+    from repro_torch.core import fused as FU
+    from repro_torch.models.conv import conv_meta
+    g = _card()
+    s0 = torch.randn(64, 1024, 32, generator=g, device="cuda")
+    w = torch.randn(32, 10, generator=g, device="cuda")
+    loss = lambda t: torch.tanh(t @ w).pow(2).mean()
+    zero = torch.zeros_like(s0, requires_grad=True)
+    (cot,) = torch.autograd.grad(loss(s0 + zero), [zero])
+    meta = conv_meta("c", ("c",), spatial=(3, 3), stride=(1, 1), c_in=3,
+                     d_out=32)
+    probe = FU.gg_probe(meta, "cuda")
+    before = K.launches()["factor_update"]
+    out = FU.apply_gprobe(s0, probe["gg"], FU.g_contract(meta))
+    assert out is not s0 and torch.equal(out, s0)
+    (gg,) = torch.autograd.grad(loss(out), [probe["gg"]])
+    assert K.launches()["factor_update"] == before + 1
+    c2 = cot.reshape(-1, 32)
+    _close(gg, c2.T @ c2)
+
+
+def test_patch_factor_fused_contraction_on_card():
+    """A fused 1-D conv's A contraction (patch_factor at alpha = 1, beta =
+    0 into a zero) against its plain version."""
+    from repro_torch.core import fused as FU
+    from repro_torch.models.conv import conv_meta
+    g = _card()
+    x = torch.randn(4, 300, 80, generator=g, device="cuda")
+    meta = conv_meta("c", ("c",), spatial=(3,), stride=(1,), c_in=80,
+                     d_out=64, padding="SAME")
+    before = K.launches()["patch_factor"]
+    got = FU.conv_a_contract(meta)(x)
+    assert K.launches()["patch_factor"] == before + 1
+    _close(got, FU.conv_a_contract(meta)(x.cpu()).cuda())
+
+
+@pytest.mark.parametrize("path", ["blkdiag", "blkdiag_fs", "eigen_fs"])
+def test_conv_steps_on_card_match_cpu(path):
+    """6 K-FAC steps of the reduced conv classifier on the card and on the
+    CPU from the same weights and uniforms: losses within rtol 1e-3
+    (``chip_smoke.py``'s "conv" phase)."""
+    from repro_torch.configs.conv_classifier import reduced as conv_reduced
+    from repro_torch.data.pipeline import SyntheticImageData
+    from repro_torch.models.convnet import ConvNet
+    _card()
+    cfg = conv_reduced()
+    kw = dict(inv_mode=path.split("_")[0], lambda_init=3.0, t3=5, eta=1e-5,
+              fused_stats=path.endswith("_fs"))
+    hist = {}
+    for where in ("cuda", "cpu"):
+        net = ConvNet(cfg, device=where)
+        params = net.init_params(torch.Generator().manual_seed(0))
+        data = SyntheticImageData(cfg.image_size, cfg.channels,
+                                  cfg.n_classes, 128, seed=7, device=where)
+        noise = lambda step, shape, where=where: torch.rand(
+            shape, generator=torch.Generator().manual_seed(step)).to(where)
+        out = Trainer(net, kfac(net, KFACConfig(**kw), family="categorical",
+                                device=where),
+                      TrainConfig(seed=0), noise=noise, device=where).fit(
+            params, data, steps=6, log=lambda *_: None)
+        hist[where] = [h["loss"] for h in out["history"]]
+    assert all(math.isfinite(v) for v in hist["cuda"])
+    assert hist["cuda"][-1] < hist["cuda"][0]
+    for a, b in zip(hist["cuda"], hist["cpu"]):
+        assert abs(a - b) <= 1e-3 * abs(b), (hist["cuda"], hist["cpu"])

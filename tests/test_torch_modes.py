@@ -73,7 +73,8 @@ def test_config_accepts_the_modes(kw):
 
 @pytest.mark.parametrize("kw", [dict(refresh_mode="sharded"),
                                 dict(refresh_mode="overlap"),
-                                dict(fused_stats=True)])
+                                dict(refresh_mode="sharded",
+                                     fused_stats=True)])
 def test_config_still_refuses_the_distributed_modes(kw):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         KFACConfig(**kw)
