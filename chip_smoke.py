@@ -249,6 +249,29 @@ on failure (nothing is caught):
             (lr 1e-3) through ``launch/train.py --optimizer adam``: the
             loss finite, no kernel launched, plain-step median and peak
             memory.
+   decoders K-FAC training of the dense decoders (``decoders_phase``).
+            First the kernels at full-width llama3.2-1b's shapes, each
+            against its plain version as phase 3 holds it and timed beside
+            the library calls with its plans and bound: factor_update
+            batched over the 16 stacked layers, X (16, 512, d) for d in
+            2048, 8192 and 512, at beta = 0 and 0.95 (beside baddbmm); one
+            ns_step on (16, 8192, 8192) and (16, 2048, 2048) stacks (bmm +
+            baddbmm); precondition on the 7 stacked layer shapes (bmm +
+            bmm).  Then reduced smollm-135m and llama3.2-1b 4 K-FAC steps
+            on the card and on the CPU, same weights and uniforms: losses
+            within rtol 1e-3.  Then through ``launch/train.py``'s ``main``
+            at its defaults (batch 8, seq 64, lambda_init 10, T3 5, blkdiag
+            ns; weights from seed 0): full-width smollm-135m (30 layers, d
+            576, 9 query heads over 3 KV heads, d_ff 1536, vocab 49152,
+            tied head) 25 steps, through the step-20 γ sweep, then 3 Adam
+            steps (no launch); full-width llama3.2-1b (16 layers, d 2048,
+            32 over 8 heads, d_ff 8192, vocab 128256, tied head) 6 steps:
+            the warmup refreshes, the lambda step at 4, the T3 refresh at
+            5.  Exact launch counts (``decoder_launches``), the loss finite
+            and below its first value at the last step, plain-step,
+            refresh-step and sweep-step ms, the memory allocated, reserved
+            and free before each run and its peak beside the reckoning of
+            ``decoder_memory``.
 7. profile  each autoencoder path twice more: per-stage host times
             (synchronized; on tridiag also each eigh of the refresh stage,
             and eigh's share of each refresh step), then device time by
@@ -260,7 +283,8 @@ on failure (nothing is caught):
 8. summary  the ``{"main": ...}`` (the modes' runs under ``modes_*``, the
             ckpt phase's under ``ckpt_*``, the fused autoencoder's under
             ``ae_fs_*``), ``{"serve": ...}``, ``{"race": ...}``,
-            ``{"conv": ...}`` and ``{"kernels": [...]}`` lines, the
+            ``{"conv": ...}``, ``{"decoders": ...}`` and ``{"kernels":
+            [...]}`` lines, the
             nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Bounds are the larger of fp32 operations over 67 TFLOP/s and bytes over
@@ -1244,10 +1268,11 @@ def factor_update_row(dev, randn, spd, sides, log) -> dict:
 
 
 
-def agree_whisper(steps: int = 4) -> list:
-    """Reduced whisper-small, ``steps`` K-FAC steps of the launcher's setup
-    on the card and on the CPU (plain versions), same weights and uniforms:
-    losses within rtol 1e-3."""
+def agree_lm(arch: str, steps: int = 4) -> list:
+    """Reduced ``arch`` (whisper-small, smollm-135m or llama3.2-1b),
+    ``steps`` K-FAC steps of the launcher's setup on the card and on the
+    CPU (plain versions), same weights and uniforms: losses within rtol
+    1e-3."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.configs.base import KFACConfig, TrainConfig
     from repro_torch.data.pipeline import SyntheticLMData
@@ -1256,7 +1281,7 @@ def agree_whisper(steps: int = 4) -> list:
     from repro_torch.optimizers.kfac import kfac
     from repro_torch.training.trainer import Trainer
 
-    cfg = get_reduced_config("whisper-small")
+    cfg = get_reduced_config(arch)
     kcfg = KFACConfig(lambda_init=10.0, t3=5)
     params = LM(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(0))
@@ -1273,11 +1298,11 @@ def agree_whisper(steps: int = 4) -> list:
         hist[where] = [h["loss"] for h in tr.fit(
             to_device(params, where), data, steps=steps,
             log=lambda *_: None)["history"]]
-    print(f"[agree:whisper] reduced whisper-small losses cuda {hist['cuda']}")
-    print(f"        plain versions on the cpu        {hist['cpu']}")
+    print(f"[agree:{arch}] reduced {arch} losses cuda {hist['cuda']}")
+    print(f"        plain versions on the cpu {' ' * len(arch)}{hist['cpu']}")
     for a, b in zip(hist["cuda"], hist["cpu"]):
         if not abs(a - b) <= 1e-3 * abs(b):
-            raise AssertionError(f"whisper: cuda path {a} vs cpu path {b}")
+            raise AssertionError(f"{arch}: cuda path {a} vs cpu path {b}")
     return hist["cuda"]
 
 
@@ -2300,9 +2325,9 @@ def race_main(mlp, params, data, kfac_rows: dict,
             "claims": claims, "rows": rows}
 
 
-def whisper_adam(steps: int = 3) -> dict:
-    """Full-width whisper-small through ``launch/train.py --optimizer adam
-    --lr 1e-3``: the loss finite and no kernel of ``repro_torch.kernels``
+def lm_adam(arch: str, steps: int = 3) -> dict:
+    """Full-width ``arch`` through ``launch/train.py --optimizer adam --lr
+    1e-3``: the loss finite and no kernel of ``repro_torch.kernels``
     launched; per-step host ms and peak memory."""
     from repro_torch import kernels as K
     from repro_torch.launch import train
@@ -2313,8 +2338,8 @@ def whisper_adam(steps: int = 3) -> dict:
     resident = torch.cuda.memory_allocated()
     K.reset_launches()
     ms = []
-    res = train.main(["--arch", "whisper-small", "--optimizer", "adam",
-                      "--lr", "1e-3", "--steps", str(steps)],
+    res = train.main(["--arch", arch, "--optimizer", "adam", "--lr", "1e-3",
+                      "--steps", str(steps)],
                      log=lambda msg: print(f"  {msg}"),
                      wrap_opt=lambda opt: timed(opt, ms))
     torch.cuda.synchronize()
@@ -2322,8 +2347,8 @@ def whisper_adam(steps: int = 3) -> dict:
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in res["history"]]
     plain = sorted(ms[1:])
-    print(f"[main:whisper-adam] full-width whisper-small, Adam lr 1e-3, "
-          f"batch 8, seq 64, {steps} steps")
+    print(f"[main:{arch}-adam] full-width {arch}, Adam lr 1e-3, batch 8, "
+          f"seq 64, {steps} steps")
     print(f"  per-step ms: {[round(t, 1) for t in ms]}; plain-step median "
           f"{plain[len(plain) // 2]:.1f} ms (step 0 includes the first "
           f"calls' set-up); peak memory {peak / 2 ** 20:.1f} MiB, of which "
@@ -2331,9 +2356,9 @@ def whisper_adam(steps: int = 3) -> dict:
     print(f"  losses: {[round(v, 4) for v in losses]}")
     print(f"  launches: {launches}")
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"whisper adam: loss not finite: {losses}")
+        raise AssertionError(f"{arch} adam: loss not finite: {losses}")
     if any(launches.values()):
-        raise AssertionError(f"whisper adam: kernels launched: {launches}")
+        raise AssertionError(f"{arch} adam: kernels launched: {launches}")
     del res
     torch.cuda.empty_cache()
     return {"steps": steps, "step_ms": ms,
@@ -2953,6 +2978,342 @@ def fused_trajectory(label: str, fused: list, two: list) -> float:
     return worst
 
 
+# ---- the "decoders" phase: K-FAC training of the dense decoders ----------
+
+DEC_STEPS = {"smollm-135m": 25, "llama3.2-1b": 6}
+DEC_ROWS = 8 * 64             # the launcher's global N: B·T tokens
+DEC_STACK = 16                # llama3.2-1b's stacked layers
+# llama3.2-1b's three stacked factor-side widths: d_model (and the query
+# and output maps), d_ff and the K/V maps' output
+DEC_SIDES = (2048, 8192, 512)
+DEC_NS = (8192, 2048)
+
+
+def decoder_metas(arch: str) -> dict:
+    """The full-width decoder's K-FAC layer metas (no weights are built)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    return LM(get_config(arch), device="cpu").metas
+
+
+def decoder_memory(arch: str) -> dict:
+    """The device memory a full-width decoder's K-FAC run holds, reckoned
+    from the code (GiB): P a float32 copy of the parameters, F the factors
+    (as much again for the inverses), L its largest stacked (S, d, d)
+    side, I the identity views ``init`` holds before the first refresh,
+    H(m) the exact-Fisher quadratic's head terms for m tangents: the tied
+    head's tangents (m, d, V), and about 4m (B·T, V) arrays of the logits'
+    J-products and the contractions' copies.  Factors and inverses are
+    written over the old ones (``optimizers/kfac.py::Written``), so one
+    set of each lives.  A refresh holds params, delta0 and grads (3P),
+    factors, inverses and Newton–Schulz's four (S, d, d) stacks at the
+    widest side: M, X, Z = M X and the new X.  An update holds params, the
+    trainer's old delta0, grads, the regularized gradient, the
+    preconditioned step, the scaled one and the applied one (7P; the new
+    params come once the scaled one is gone), factors, inverses, H(2), and
+    at step 0 also ``init``'s identities.  The γ sweep's refresh holds the
+    three candidates' inverses beside the current set and NS's four
+    stacks three times over; its update three candidate steps, the
+    picked one and its scaled and applied copies (10P), the candidates',
+    the picked and the current inverses (5F) beside the factors, and
+    H(4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    cfg = get_config(arch)
+    lm = LM(cfg, device="cpu")
+    gib = 4 / 2 ** 30
+    p = lm.n_params() * gib
+    sides = [(m.n_stack or 1, d, kind) for m in lm.metas.values()
+             for d, kind in ((m.a_dim, m.a_kind), (m.g_dim, m.g_kind))]
+    f = sum(s * d * (d if kind == "full" else 1) for s, d, kind in sides)
+    f *= gib
+    big = max(s * d * d for s, d, kind in sides if kind == "full") * gib
+    ident = sum(d * (d if kind == "full" else 1) for _, d, kind in sides)
+    ident *= gib
+    head = lambda m: m * cfg.vocab_size * (cfg.d_model + 4 * DEC_ROWS) * gib
+    out = {"params_gib": p, "factors_gib": f, "largest_stack_gib": big,
+           "identity_gib": ident, "quad_head_gib": head(2),
+           "refresh_gib": 3 * p + 2 * f + 4 * big,
+           "update_gib": 7 * p + 2 * f + head(2) + ident,
+           "sweep_refresh_gib": 3 * p + 5 * f + 12 * big,
+           "sweep_update_gib": 10 * p + 6 * f + head(4)}
+    print(f"[memory:{arch}] reckoned: P {p:.2f}, F {f:.2f}, L {big:.2f}, "
+          f"I {ident:.2f}, H(2) {head(2):.2f} GiB; refresh "
+          f"{out['refresh_gib']:.1f}, update (step 0) {out['update_gib']:.1f}"
+          f", γ sweep's refresh {out['sweep_refresh_gib']:.1f} and update "
+          f"{out['sweep_update_gib']:.1f} GiB")
+    return out
+
+
+def decoder_kernel_rows(dev, rows: dict) -> None:
+    """The kernels at full-width llama3.2-1b's shapes, each against its
+    plain version as phase 3 holds it (the errors fold into each row's
+    ``max_abs_err``), timed beside the library calls with plans and bounds
+    as cases ``llama3.2-1b ...`` of rows 2, 3 and 4:
+
+    * factor_update batched over the 16 stacked layers, X (16, 512, d) into
+      (16, d, d) for d in 2048, 8192 and 512, at beta = 0 and 0.95, timed
+      once at each width beside baddbmm;
+    * one ns_step on (16, 8192, 8192) and on (16, 2048, 2048) stacks (the
+      MLP's and the attention's factors), beside bmm + baddbmm;
+    * precondition on each of the 7 stacked layer shapes (a, g) of one
+      step, Ā⁻¹ (16, a, a), V (16, a, g), Ḡ⁻¹ (16, g, g), beside bmm +
+      bmm.
+
+    A (16, 8192, 8192) float32 stack is 2³⁰ elements (4 GiB): the largest
+    tensor any kernel has met, so its timings repeat twice, not ten
+    times."""
+    from repro_torch.kernels import gemm_plan
+    from repro_torch.kernels.factor_update import (factor_update,
+                                                   factor_update_ref)
+    from repro_torch.kernels.ns_step import ns_step, ns_step_ref
+    from repro_torch.kernels.precond import precondition, precondition_ref
+    g = torch.Generator(device=dev).manual_seed(11)
+    sms = gemm_plan.sm_count(dev.index or 0)
+    eps = torch.tensor(0.95, device=dev)
+
+    def spd(d):
+        f = torch.randn(DEC_STACK, d, 512, generator=g, device=dev)
+        m = torch.bmm(f, f.transpose(1, 2)) / 512
+        return m + 0.1 * torch.eye(d, device=dev)
+
+    errs = []
+    ops, flops, nbytes, plans = [], 0.0, 0.0, []
+    for d in DEC_SIDES:
+        x = torch.tanh(torch.randn(DEC_STACK, DEC_ROWS, d, generator=g,
+                                   device=dev))
+        c = spd(d)
+        for e in (0.0, 0.95):
+            be = torch.tensor(e, device=dev)
+            a = (1 - be) / DEC_ROWS
+            prod = factor_update_ref(x, c, alpha=a, beta=0.0)
+            compare(f"factor_update llama X({DEC_STACK},{DEC_ROWS},{d}) "
+                    f"beta={e}", factor_update(x, c, alpha=a, beta=be),
+                    factor_update_ref(x, c, alpha=a, beta=be), errs,
+                    scale=prod.abs().max().item())
+            del prod
+        p = gemm_plan.triangle_plan(d, d, False, DEC_ROWS, sms,
+                                    batch=DEC_STACK)
+        plans.append(f"d {d}: tile {p.tile}, {p.tiles} tiles a side, "
+                     f"{p.blocks} blocks, splits {p.splits}")
+        ops.append((x, c))
+        flops += float(DEC_STACK) * DEC_ROWS * d * (d + 1)
+        nbytes += 4.0 * DEC_STACK * (DEC_ROWS * d + 2 * d * d)
+    run = lambda f: [f(x, c, alpha=(1 - eps) / DEC_ROWS, beta=eps)
+                     for x, c in ops]
+    fu = rows["factor_update"]
+    fu["cases"]["llama3.2-1b"] = dict(
+        unit="llama3.2-1b's stacked factor side widths, one launch each: X "
+             + ", ".join(f"({DEC_STACK}, {DEC_ROWS}, {d})"
+                         for d in DEC_SIDES),
+        plans=plans,
+        **timings(lambda: run(factor_update), lambda: run(factor_update_ref),
+                  lambda: [torch.baddbmm(c, x.transpose(1, 2), x, beta=0.95,
+                                         alpha=0.05 / DEC_ROWS)
+                           for x, c in ops], reps=3),
+        bound=bound_ms(flops, nbytes))
+    fu["max_abs_err"] = max(fu["max_abs_err"], *errs)
+    del ops, x, c
+    torch.cuda.empty_cache()
+
+    errs = []
+    for d in DEC_NS:
+        m = spd(d)
+        x0 = torch.eye(d, device=dev) / m.abs().sum(-1).amax(-1)[:, None,
+                                                                  None]
+        x = ns_step_ref(m, x0)
+        del x0
+        compare(f"ns_step llama stacked ({DEC_STACK},{d},{d})",
+                ns_step(m, x), ns_step_ref(m, x), errs)
+        rows["ns_step"]["cases"][f"llama3.2-1b {d}"] = dict(
+            unit=f"one stacked ns_step, M and X ({DEC_STACK}, {d}, {d})",
+            plans=[mm_plan(DEC_STACK, d, d, d)],
+            **timings(lambda: ns_step(m, x), lambda: ns_step_ref(m, x),
+                      lambda: torch.baddbmm(x, x, torch.bmm(m, x), beta=2,
+                                            alpha=-1),
+                      reps=2 if d > 4096 else 10),
+            bound=bound_ms(4.0 * DEC_STACK * d ** 3,
+                           4.0 * DEC_STACK * 3 * d * d))
+        del m, x
+        torch.cuda.empty_cache()
+    rows["ns_step"]["max_abs_err"] = max(rows["ns_step"]["max_abs_err"],
+                                         *errs)
+
+    errs, ops, plans = [], [], []
+    shapes = [(m.d_in, m.d_out) for m in decoder_metas("llama3.2-1b").values()
+              if m.kind == "dense"]
+    for a, gd in shapes:
+        ai, gi = spd(a), spd(gd)
+        v = torch.randn(DEC_STACK, a, gd, generator=g, device=dev)
+        compare(f"precondition llama stacked a={a} g={gd}",
+                precondition(ai, v, gi), precondition_ref(ai, v, gi), errs)
+        ops.append((ai, v, gi))
+        plans += [mm_plan(DEC_STACK, a, gd, k_) for k_ in (gd, a)]
+    pc = rows["precondition"]
+    pc.setdefault("cases", {})["llama3.2-1b"] = dict(
+        unit="the 7 stacked layers of one llama3.2-1b step, Ā⁻¹ V Ḡ⁻¹ at "
+             + ", ".join(f"({DEC_STACK}, {a}, {gd})" for a, gd in shapes),
+        plans=plans,
+        **timings(lambda: [precondition(*o) for o in ops],
+                  lambda: [precondition_ref(*o) for o in ops],
+                  lambda: [torch.bmm(ai, torch.bmm(v, gi))
+                           for ai, v, gi in ops], reps=2),
+        bound=bound_ms(sum(2.0 * DEC_STACK * a * gd * (a + gd)
+                           for a, gd in shapes),
+                       4.0 * DEC_STACK * sum(a * a + 2 * a * gd + gd * gd
+                                             for a, gd in shapes)))
+    pc["max_abs_err"] = max(pc["max_abs_err"], *errs)
+    del ops
+    torch.cuda.empty_cache()
+    for label, r in [("factor_update", fu["cases"]["llama3.2-1b"]),
+                     ("precondition", pc["cases"]["llama3.2-1b"])] + [
+            ("ns_step", rows["ns_step"]["cases"][f"llama3.2-1b {d}"])
+            for d in DEC_NS]:
+        print(f"  {label} {r['unit']}: kernel {r['ms']:.4f} "
+              f"[{r['eager_ms']['ms']:.4f}] ms, plain {r['plain_ms']:.4f} "
+              f"ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}; "
+              f"{r['bound'][0] / r['ms']:.1%}); plans {r['plans']}")
+
+
+def decoder_launches(arch: str, steps: int) -> dict:
+    """The launch counts of ``steps`` launcher steps of a full-width dense
+    decoder: ``kfac_launches`` over its stacked dense layers (each one
+    batched launch a side: 7 layers, 14 factor_update launches a
+    statistics step, 7 precondition a step and 21 on a γ sweep), with
+    ns_step on every full factor side (both sides of each stacked layer
+    and the tied embedding's Ḡ; its Ā is diagonal, as is every side no
+    kernel takes) ``ns_iters`` times a refresh and a sweep."""
+    from repro_torch.configs.base import KFACConfig
+    cfg = KFACConfig(lambda_init=10.0, t3=5)
+    metas = decoder_metas(arch).values()
+    layers = sum(m.kind == "dense" for m in metas)
+    full = sum((m.a_kind == "full") + (m.g_kind == "full") for m in metas)
+    passes = [s for s in range(steps)
+              if s < 3 or s % cfg.t3 == 0 or (s > 0 and s % cfg.t2 == 0)]
+    return kfac_launches(cfg, layers, steps,
+                         ns=len(passes) * full * cfg.ns_iters)
+
+
+def decoder_main(arch: str, steps: int, falling: bool = True) -> dict:
+    """``Trainer.fit`` of a full-width dense decoder through
+    ``launch/train.py``'s ``main`` at the launcher's defaults (batch 8, seq
+    64, λ₀ 10, T3 5, blkdiag NS; weights from seed 0), the launch counters
+    zeroed just before and read just after: exact counts
+    (``decoder_launches``), every loss finite and every update applied (a
+    finite, nonzero step), with ``falling`` the last loss below the first;
+    plain-step, refresh-step and sweep-step ms of ``opt.update``, each
+    step's λ, α, μ and ρ, peak memory, and the memory allocated, reserved
+    and free on the device before the run."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import KFACConfig
+    from repro_torch.launch import train
+
+    cfg = KFACConfig(lambda_init=10.0, t3=5)
+    reckoned = decoder_memory(arch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[main:{arch}] before the run: allocated "
+          f"{resident / 2 ** 20:.1f} MiB, reserved {reserved / 2 ** 20:.1f} "
+          f"MiB, free {free / 2 ** 20:.1f} of {total / 2 ** 20:.1f} MiB")
+    K.reset_launches()
+    ms = []
+    t0 = time.perf_counter()
+    res = train.main(["--arch", arch, "--steps", str(steps)],
+                     log=lambda msg: print(f"  {msg}"),
+                     wrap_opt=lambda opt: timed(opt, ms))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = decoder_launches(arch, steps)
+    losses = [h["loss"] for h in res["history"]]
+    sweeps = [i for i in range(steps) if i > 0 and i % cfg.t2 == 0]
+    refresh = [i for i in range(steps)
+               if i not in sweeps and (i < 3 or i % cfg.t3 == 0)]
+    plain = sorted(t for i, t in enumerate(ms)
+                   if i not in refresh and i not in sweeps)
+    reckoned_peak = max(reckoned[k] for k in (
+        "refresh_gib", "update_gib",
+        *(("sweep_refresh_gib", "sweep_update_gib") if sweeps else ())))
+    print(f"[main:{arch}] full-width {arch}, batch 8, seq 64, {steps} steps "
+          f"in {wall:.1f} s")
+    print(f"  per-step ms: {[round(t, 1) for t in ms]}")
+    print(f"  plain-step median {plain[len(plain) // 2]:.1f} ms; refresh "
+          f"steps {[round(ms[i], 1) for i in refresh]} ms (step 0 includes "
+          f"the first calls' set-up); sweep steps "
+          f"{[round(ms[i], 1) for i in sweeps]} ms; peak memory "
+          f"{peak / 2 ** 20:.1f} MiB, of which {resident / 2 ** 20:.1f} MiB "
+          f"was allocated before ({peak / 2 ** 30:.2f} GiB against "
+          f"{reckoned_peak:.2f} reckoned)")
+    print(f"  losses: {[round(v, 4) for v in losses]}")
+    model = {k: [h.get(k) for h in res["history"]]
+             for k in ("lam", "alpha", "mu", "rho", "delta_norm")}
+    for k, vs in model.items():
+        print(f"  {k}: {[None if v is None else float(f'{v:.4g}') for v in vs]}")
+    print(f"  launches: {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{arch}: loss not finite: {losses}")
+    if not all(math.isfinite(v) and v > 0 for v in model["delta_norm"]):
+        raise AssertionError(f"{arch}: an update not applied: "
+                             f"{model['delta_norm']}")
+    if falling and not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: loss not falling: {losses}")
+    if launches != want:
+        raise AssertionError(f"{arch}: launch counts {launches}, expected "
+                             f"{want}")
+    out = {"steps": steps, "n_tokens": DEC_ROWS, "step_ms": ms,
+           "reckoned": reckoned, "reckoned_peak_gib": reckoned_peak,
+           **model,
+           "plain_step_ms_median": plain[len(plain) // 2],
+           "refresh_step_ms": {i: ms[i] for i in refresh},
+           "sweep_step_ms": {i: ms[i] for i in sweeps},
+           "peak_mem_bytes": peak, "resident_bytes_before": resident,
+           "reserved_bytes_before": reserved, "free_bytes_before": free,
+           "losses": losses, "launches": launches, "wall_s": wall}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def decoders_phase(dev, rows: dict) -> dict:
+    """The "decoders" phase: the kernels at llama3.2-1b's shapes
+    (``decoder_kernel_rows``), reduced smollm-135m and llama3.2-1b 4 steps
+    on the card and on the CPU, full-width smollm-135m 25 steps (through
+    the step-20 γ sweep) and 3 Adam steps, full-width llama3.2-1b 6 steps
+    (the warmup refreshes, the λ step at 4, the T3 refresh at 5).  Alone:
+    ``python3 -c 'import chip_smoke as c, torch; c.decoders_phase(
+    torch.device("cuda"), c.kernel_rows_stub())'``."""
+    t0 = time.perf_counter()
+    decoder_kernel_rows(dev, rows)
+    out = {"agree": {arch: agree_lm(arch) for arch in DEC_STEPS}}
+    out["smollm-135m"] = decoder_main("smollm-135m",
+                                      DEC_STEPS["smollm-135m"])
+    out["smollm-135m_adam"] = lm_adam("smollm-135m")
+    # llama3.2-1b's loss is held finite, not falling: 6 steps on the
+    # synthetic stream, 512 tokens a step over a vocab of 128,256, leave it
+    # near its first value (12.1275 to 12.1763 on an H100 80GB HBM3 at
+    # 700 W), and the port follows the reference at that vocab
+    # (tests/test_torch_decoder_vocab.py)
+    out["llama3.2-1b"] = decoder_main("llama3.2-1b",
+                                      DEC_STEPS["llama3.2-1b"],
+                                      falling=False)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def kernel_rows_stub() -> dict:
+    """The fields of phase 3's rows that ``decoder_kernel_rows`` adds to,
+    for running the "decoders" phase alone."""
+    return {"factor_update": {"cases": {}, "max_abs_err": 0.0},
+            "ns_step": {"cases": {}, "max_abs_err": 0.0},
+            "precondition": {"max_abs_err": 0.0}}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 1. device ---------------------------------------------------
@@ -3379,7 +3740,7 @@ def main() -> None:
                                      f"{b}")
     serve_agree = {arch: agree_serving(arch)
                    for arch in ("smollm-135m", "llama3.2-1b", "gemma2-2b")}
-    whisper_agree = agree_whisper()
+    whisper_agree = agree_lm("whisper-small")
 
     print(f"[time] agree phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -3557,13 +3918,20 @@ def main() -> None:
                                     predicted_bytes=need)
     launches_by_path["ckpt_whisper"] = main_out["ckpt_whisper"]["launches"]
     shutil.rmtree(wdir)
-    main_out["whisper_adam"] = whisper_adam()
+    main_out["whisper_adam"] = lm_adam("whisper-small")
     launches_by_path["whisper_adam"] = main_out["whisper_adam"]["launches"]
     # the modes phase's whisper run, after serving as whisper's own
     main_out["modes_whisper"] = whisper_modes()
     launches_by_path["modes_whisper"] = main_out["modes_whisper"]["launches"]
     print(f"[time] whisper phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    # ---- decoders: K-FAC training of smollm-135m and llama3.2-1b ------
+    dec_out = decoders_phase(dev, rows)
+    for label in ("smollm-135m", "smollm-135m_adam", "llama3.2-1b"):
+        launches_by_path[f"dec_{label}"] = dec_out[label]["launches"]
+    print(f"[time] decoders phase done at "
+          f"{time.perf_counter() - t_start:.1f} s ({dec_out['phase_s']:.1f}"
+          f" s)")
     # ---- 7. where the time goes --------------------------------------
     for label, cfg in paths.items():
         profiles[label] = profile_path(label, mlp, params, data, cfg, steps)
@@ -3605,6 +3973,7 @@ def main() -> None:
     print(json.dumps({"serve": serve_out, "serve_agree": serve_agree}))
     print(json.dumps({"race": race_out}))
     print(json.dumps({"conv": conv_out}))
+    print(json.dumps({"decoders": dec_out}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

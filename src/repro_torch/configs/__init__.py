@@ -1,7 +1,7 @@
 """Architecture registry of the port: the ``--arch`` ids it has so far
 (``repro/configs/__init__.py`` lists all ten).  Serving runs the llama
 family and gemma2 (the engine refuses the encoder-decoder); training runs
-whisper-small (``launch/train.py``)."""
+smollm-135m, llama3.2-1b and whisper-small (``launch/train.py``)."""
 from __future__ import annotations
 
 import importlib

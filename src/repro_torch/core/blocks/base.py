@@ -36,21 +36,31 @@ class CurvatureBlock:
 
     # -- layout ---------------------------------------------------------
     def init_factors(self) -> Dict[str, Any]:
+        """Zero factors as views of one zero: the first statistics pass
+        weighs them by ε = 0 and writes new tensors, so a stack of S
+        (d, d) factors costs nothing before it."""
         m = self.meta
         lead = (m.n_stack,) if m.n_stack else ()
-        z = lambda d, kind: torch.zeros(F.factor_shape(d, kind, lead),
-                                        device=self.device)
+        zero = torch.zeros((), device=self.device)
+        z = lambda d, kind: zero.expand(F.factor_shape(d, kind, lead))
         return {"a": z(m.a_dim, m.a_kind), "g": z(m.g_dim, m.g_kind)}
 
     def identity_inverse(self) -> Dict[str, Any]:
-        def one(arr, kind):
-            if kind == "diag":
-                return torch.ones_like(arr)
-            return arr + torch.eye(arr.shape[-1], device=self.device)
+        """The inverses before the first refresh: ones on a diagonal side,
+        else one (d, d) identity viewed across the stacked layers (the
+        first refresh reads it as its NS hot start), so that a stack of S
+        costs d² floats rather than S·d²."""
+        m = self.meta
+        lead = (m.n_stack,) if m.n_stack else ()
 
-        z = self.init_factors()
-        return {"a_inv": one(z["a"], self.meta.a_kind),
-                "g_inv": one(z["g"], self.meta.g_kind)}
+        def one(d, kind):
+            shape = F.factor_shape(d, kind, lead)
+            if kind == "diag":
+                return torch.ones(shape, device=self.device)
+            return torch.eye(d, device=self.device).expand(shape)
+
+        return {"a_inv": one(m.a_dim, m.a_kind),
+                "g_inv": one(m.g_dim, m.g_kind)}
 
     # -- statistics (S5) ------------------------------------------------
     def stats_contrib(self, rec, gprobe, n: int) -> Dict[str, Any]:

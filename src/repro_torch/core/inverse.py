@@ -94,14 +94,15 @@ def ns_inverse(m, iters: int, x0=None):
         m = m.reshape(-1, *shape[-2:])
         if x0 is not None:
             x0 = x0.expand(shape).reshape(-1, *shape[-2:])
-    cold = NS.cold_start(m)
     if x0 is None:
-        x = cold
+        x = NS.cold_start(m)
     else:
+        # the safeguard first and no temporary kept past its use: at
+        # llama3.2-1b's (16, 8192, 8192) stacks each (d, d) stack is 4 GiB
         eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
-        r = eye - m @ x0
-        bad = torch.amax(torch.sum(torch.abs(r), dim=-1), dim=-1) >= 1.0
-        x = torch.where(bad[..., None, None], cold, x0)
+        bad = torch.amax(torch.sum(torch.abs(eye - m @ x0), dim=-1),
+                         dim=-1) >= 1.0
+        x = torch.where(bad[..., None, None], NS.cold_start(m), x0)
     for _ in range(iters):
         x = NS.ns_step(m, x)
     return (0.5 * (x + x.transpose(-1, -2))).reshape(shape)

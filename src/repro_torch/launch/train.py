@@ -1,28 +1,29 @@
 """Training launcher (mirrors ``repro/launch/train.py``).
 
-  python -m repro_torch.launch.train --arch whisper-small --steps 10
+  python -m repro_torch.launch.train --arch llama3.2-1b --steps 6
 
-trains full-width whisper-small with K-FAC on the card (``--device cuda``,
-the default; ``--device cpu`` runs the plain PyTorch versions, e.g. with
-``--reduced``).  ``--optimizer sgd_momentum`` or ``adam`` trains with a
-first-order baseline at ``--lr`` (default 1e-3) instead.  The reference
-launcher's defaults: batch 8, seq 64, λ₀ 10, T3 5, ``--inv_mode blkdiag``
-with Newton–Schulz inverses.  ``--inv_mode tridiag`` runs the
-block-diagonal path on an LM (it has no chain of layers), as the
-reference does; ``--inv_mode eigen`` on an LM is not ported yet and
-raises.  ``--refresh_mode staggered`` spreads the T3 inverse refresh over
-T3 steps in cost-balanced groups, and ``--tau1`` (default 1.0) computes the
-factor statistics on every round(1/τ1)-th sequence of the batch; the
-reference's ``sharded`` and ``overlap`` refresh modes wait for the
-distributed slice.  Weights are the port's own random initialization from
-seed 0; the tokens and mel frames are the reference's synthetic streams,
-bitwise.  ``--ckpt_dir DIR`` checkpoints into DIR every
-``max(10, steps // 2)`` steps, as the reference does, and a relaunch with
-the same DIR resumes from its latest checkpoint (``--steps`` is the step to
-stop at); without it nothing is written.  The reference's ``--mesh`` and
-``--obs*`` options wait for their slices, and so does training the
-decoder-only archs: ``--arch`` offers whisper-small, the one arch whose
-training is held against the reference.
+trains a full-width arch with K-FAC on the card (``--device cuda``, the
+default; ``--device cpu`` runs the plain PyTorch versions, e.g. with
+``--reduced``).  ``--arch`` offers the dense decoders smollm-135m and
+llama3.2-1b (the default, as the reference's) and the encoder-decoder
+whisper-small: the archs whose training is held against the reference.
+``--optimizer sgd_momentum`` or ``adam`` trains with a first-order
+baseline at ``--lr`` (default 1e-3) instead.  The reference launcher's
+defaults: batch 8, seq 64, λ₀ 10, T3 5, ``--inv_mode blkdiag`` with
+Newton–Schulz inverses.  ``--inv_mode tridiag`` runs the block-diagonal
+path on an LM (it has no chain of layers), as the reference does;
+``--inv_mode eigen`` on an LM is not ported yet and raises.
+``--refresh_mode staggered`` spreads the T3 inverse refresh over T3 steps
+in cost-balanced groups, and ``--tau1`` (default 1.0) computes the factor
+statistics on every round(1/τ1)-th sequence of the batch; the reference's
+``sharded`` and ``overlap`` refresh modes wait for the distributed slice.
+Weights are the port's own random initialization from seed 0; the tokens
+and mel frames are the reference's synthetic streams, bitwise.
+``--ckpt_dir DIR`` checkpoints into DIR every ``max(10, steps // 2)``
+steps, as the reference does, and a relaunch with the same DIR resumes
+from its latest checkpoint (``--steps`` is the step to stop at); without
+it nothing is written.  The reference's ``--mesh`` and ``--obs*`` options
+wait for their slices.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from repro_torch.training.checkpoint import Checkpointer
 from repro_torch.training.trainer import Trainer
 
 
-TRAINED_ARCHS = ("whisper-small",)
+TRAINED_ARCHS = ("llama3.2-1b", "smollm-135m", "whisper-small")
 
 
 class _ArchData:
@@ -61,7 +62,7 @@ def main(argv=None, log=print, wrap_opt=None):
     """Parse ``argv`` and train.  ``wrap_opt``, given, maps the optimizer
     to the one the trainer calls (e.g. one that times its updates)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="whisper-small",
+    ap.add_argument("--arch", default="llama3.2-1b",
                     choices=TRAINED_ARCHS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=20)

@@ -37,6 +37,13 @@ def _pick_chunk(n: int, target: int) -> int:
     return c
 
 
+def sample_targets(logits, u):
+    """``argmax(logits + gumbel(u))``: the draw ``jax.random.categorical``
+    makes from the key behind the uniforms ``u`` (logits' shape)."""
+    gumbel = -torch.log(-torch.log(torch.clamp(u.float(), min=_TINY)))
+    return torch.argmax(logits.detach() + gumbel, dim=-1)
+
+
 def lm_head_loss(tg: Tagger, h, w_head, labels, mask, rng, *,
                  logit_cap: float = 0.0, name: str = "lm_head",
                  chunk_target: int = 128):
@@ -69,8 +76,7 @@ def lm_head_loss(tg: Tagger, h, w_head, labels, mask, rng, *,
                            * mc).sum()
         if u is None:
             continue
-        gumbel = -torch.log(-torch.log(torch.clamp(u[c].float(), min=_TINY)))
-        ys = torch.argmax(logits.detach() + gumbel, dim=-1)
+        ys = sample_targets(logits, u[c])
         loss_s = loss_s - (logp.gather(-1, ys[..., None])[..., 0]
                            * mc).sum()
         if collect:

@@ -1,7 +1,8 @@
 """The LM (mirrors ``repro/models/lm.py``): the dense decoder families with
 global and sliding-window (local) attention, attention and logit softcaps
-and a dense MLP (llama, gemma2), served; and the encoder-decoder whisper
-with its Conv1D mel stem, trained.
+and a dense MLP (llama, gemma2), served, and the llama family (smollm,
+llama3.2) trained; and the encoder-decoder whisper with its Conv1D mel
+stem, trained.
 
 Layers form a repeating *pattern* of block positions.  Parameters of each
 pattern position are stacked over ``n_groups = n_layers / period`` exactly

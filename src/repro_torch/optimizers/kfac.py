@@ -9,10 +9,14 @@ contracted inside the passes (``fused_stats=True``, ``core/fused.py``; not
 on an LM yet).
 Models: the MLP autoencoders, Bernoulli or Gaussian, and the conv
 classifier, categorical (``core/fisher.py::quad_logits``), and the LM
-(``quad_lm``; trained so far: whisper, blkdiag with the exact-F
-re-scaling; ``inv_mode="tridiag"`` on a model without ``layer_order``, an
-LM or the conv classifier, runs the block-diagonal path, as in the
-reference).
+(``quad_lm``; trained so far: whisper, smollm and llama3.2, blkdiag with
+the exact-F re-scaling; ``inv_mode="tridiag"`` on a model without
+``layer_order``, an LM or the conv classifier, runs the block-diagonal
+path, as in the reference).  The reference is functional; here a
+statistics pass or a refresh writes its factors or inverses over a set the
+engine wrote before (:class:`Written`), so that a trainer holding the old
+state does not hold a second set (full-width llama3.2-1b's are 14.3 GiB
+each).
 Parameters are nested trees (the LM's stacked ``blocks``),
 each tagged weight addressed by its block's ``param_path``; an untagged
 parameter (a norm scale) gets the reference's diagonal curvature, the
@@ -97,6 +101,24 @@ from repro_torch.utils.device import resolve_device
 def _take(x, idx):
     """``x[idx]`` along dim 0 for a 0-d device index, without a host read."""
     return x.index_select(0, idx.reshape(1)).squeeze(0)
+
+
+class Written(dict):
+    """Factors or inverses (eigen mode: eigen states) by block name, as a
+    statistics pass or a refresh of the engine wrote them.  The engine's
+    next such write replaces their entries in place, each as soon as its
+    new value exists, so that two whole sets never live at once:
+    full-width llama3.2-1b's factors are 14.3 GiB, and as much again its
+    inverses.  A state that holds this dict sees the new values after
+    that write.  Any other dict (``init``'s, a restored or converted
+    state's, the γ sweep's pick) is left as it was: the write makes a new
+    ``Written``."""
+
+
+def _written(d) -> Written:
+    """Where the engine's next write of a set goes: ``d`` itself if the
+    engine wrote it, else a new :class:`Written`."""
+    return d if isinstance(d, Written) else Written()
 
 
 class KFACEngine:
@@ -283,14 +305,16 @@ class KFACEngine:
 
         k = state.k_stats + 1
         eps = F.decay_eps(k, self.cfg.decay_cap)
-        factors = {
-            name: blk.update_factors(state.factors[name], recs[name],
-                                     gprobes.get(name), n, eps)
-            for name, blk in self.blocks.items()}
+        # block by block over the old factors where they are Written
+        old = state.factors
+        factors = _written(old)
+        for name, blk in self.blocks.items():
+            factors[name] = blk.update_factors(old[name], recs[name],
+                                               gprobes.get(name), n, eps)
         if self.chain is not None:
             cross = TridiagChain.CROSS
             factors[cross] = self.chain.update_factors(
-                state.factors[cross], recs, gprobes, n, eps)
+                old[cross], recs, gprobes, n, eps)
 
         # diagonal running curvature of the untagged params: squared
         # gradients (the norm scales, well under 1% of an LM's parameters)
@@ -314,16 +338,22 @@ class KFACEngine:
     # ------------------------------------------------------------------
     # inverses
     # ------------------------------------------------------------------
-    def _inverses_for(self, factors, gamma, prev=None):
+    def _inverses_for(self, factors, gamma, prev=None, out=None):
+        """Every block's inverses (eigen mode: eigen states) into ``out``
+        (a new dict by default), block by block; ``prev`` holds the NS hot
+        starts.  ``out`` may be ``prev`` itself: each block reads only its
+        own factors and its own previous inverse, so an entry is replaced
+        only after its one reader is done with it."""
         cfg = self.cfg
-        if self.eigen:
-            return {name: blk.eigen_state(factors[name], gamma)
-                    for name, blk in self.blocks.items()}
-        out = {name: blk.damped_inverse(
-                   factors[name], gamma, method=cfg.inverse_method,
-                   iters=cfg.ns_iters,
-                   prev=None if prev is None else prev.get(name))
-               for name, blk in self.blocks.items()}
+        out = {} if out is None else out
+        for name, blk in self.blocks.items():
+            if self.eigen:
+                out[name] = blk.eigen_state(factors[name], gamma)
+                continue
+            out[name] = blk.damped_inverse(
+                factors[name], gamma, method=cfg.inverse_method,
+                iters=cfg.ns_iters,
+                prev=None if prev is None else prev.get(name))
         if self.chain is not None:
             # the per-layer inverses stay in the state as in the reference,
             # though the chain's apply reads only its own cache
@@ -331,9 +361,12 @@ class KFACEngine:
         return out
 
     def refresh_inverses(self, state: KFACState, hot: bool = False):
-        prev = state.inv if (hot and self.cfg.inverse_method == "ns") else None
-        return state.replace(inv=self._inverses_for(state.factors,
-                                                    state.gamma, prev))
+        """Recompute every inverse, over the old ones where ``state.inv``
+        is :class:`Written`."""
+        inv = state.inv
+        prev = inv if (hot and self.cfg.inverse_method == "ns") else None
+        return state.replace(inv=self._inverses_for(
+            state.factors, state.gamma, prev, out=_written(inv)))
 
     def refresh_subset(self, state: KFACState, names, hot: bool = True):
         """Staggered refresh: recompute only the named layer blocks, the
@@ -341,7 +374,8 @@ class KFACEngine:
         hot-starts from the held inverses for ``ns_hot_iters`` iterations;
         eigen mode recomputes the blocks' eigen states."""
         cfg = self.cfg
-        inv = dict(state.inv)
+        inv = (state.inv if isinstance(state.inv, Written)
+               else Written(state.inv))
         if self.eigen:
             for name in names:
                 inv[name] = self.blocks[name].eigen_state(
