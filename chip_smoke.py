@@ -272,6 +272,28 @@ on failure (nothing is caught):
             refresh-step and sweep-step ms, the memory allocated, reserved
             and free before each run and its peak beside the reckoning of
             ``decoder_memory``.
+   gemma2   block-diagonal factors and gemma2-2b's K-FAC training
+            (``gemma2_phase``).  ``memory_table``: ``decoder_memory`` of
+            smollm-135m, llama3.2-1b and gemma2-2b at 26 and at 12 layers
+            (a block side counted as nb·db² floats).  The kernels at the
+            12-layer gemma2-2b's shapes: factor_update on the d_ff side's
+            block rows X (12, 512, 4608) (6 stacked layers × 2 blocks of
+            4608 in the batch) and the full sides' (6, 512, d), d 2304,
+            2048 and 1024, at beta = 0 and 0.95 (beside baddbmm); one
+            ns_step on (12, 4608, 4608) and (6, 2304, 2304) (bmm +
+            baddbmm); the apply of the 14 stacked layers through their
+            curvature blocks (matmul with the blocks in its batch on gate,
+            up and down; precondition on the rest) against
+            ``apply_block_inverse`` (bmm / batched matmul).  Then reduced
+            gemma2-2b 4 K-FAC steps on the card and on the CPU at
+            ``max_factor_dim`` 64 and 48, so that the block route runs:
+            losses within rtol 1e-3.  Then gemma2-2b at full width (d 2304,
+            8 over 4 heads of 256, d_ff 9216, vocab 256000, window 4096,
+            softcaps 50 and 30, tied head) cut to 12 layers (the 26 do not
+            fit the card: ``decoder_memory``) through ``launch/train.py``'s
+            ``main(..., cfg=...)`` 6 steps at its defaults, exact launch
+            counts (``decoder_launches``), the loss finite, step ms, memory
+            before and peak beside the reckoning; then 3 Adam steps.
 7. profile  each autoencoder path twice more: per-stage host times
             (synchronized; on tridiag also each eigh of the refresh stage,
             and eigh's share of each refresh step), then device time by
@@ -283,8 +305,8 @@ on failure (nothing is caught):
 8. summary  the ``{"main": ...}`` (the modes' runs under ``modes_*``, the
             ckpt phase's under ``ckpt_*``, the fused autoencoder's under
             ``ae_fs_*``), ``{"serve": ...}``, ``{"race": ...}``,
-            ``{"conv": ...}``, ``{"decoders": ...}`` and ``{"kernels":
-            [...]}`` lines, the
+            ``{"conv": ...}``, ``{"decoders": ...}``, ``{"gemma2": ...}``
+            and ``{"kernels": [...]}`` lines, the
             nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Bounds are the larger of fp32 operations over 67 TFLOP/s and bytes over
@@ -307,6 +329,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -440,10 +463,29 @@ def _device_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0.0))
 
 
+class DeviceEvent(NamedTuple):
+    """One device event name of a ``torch.profiler`` run, summed as
+    ``key_averages()`` sums it."""
+    key: str
+    count: int
+    self_device_time_total: float      # us
+
+
 def _device_events(prof) -> list:
+    """The run's device events (kernels, copies, sets) summed by name,
+    read from the kineto events themselves: ``key_averages()`` first builds
+    an event of every CPU op with its stack, which took 12–78 s a profile
+    on an H100's host (whisper's two steps 69 s), for the same sums."""
     from torch.autograd import DeviceType
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        us = (e.duration_ns() / 1e3 if hasattr(e, "duration_ns")
+              else e.duration_us())
+        n, t = sums.get(e.name(), (0, 0.0))
+        sums[e.name()] = (n + 1, t + us)
+    return [DeviceEvent(k, n, t) for k, (n, t) in sums.items()]
 
 
 def device_kernels(prof) -> tuple:
@@ -1268,11 +1310,12 @@ def factor_update_row(dev, randn, spd, sides, log) -> dict:
 
 
 
-def agree_lm(arch: str, steps: int = 4) -> list:
-    """Reduced ``arch`` (whisper-small, smollm-135m or llama3.2-1b),
-    ``steps`` K-FAC steps of the launcher's setup on the card and on the
-    CPU (plain versions), same weights and uniforms: losses within rtol
-    1e-3."""
+def agree_lm(arch: str, steps: int = 4, mfd: int = 8192) -> list:
+    """Reduced ``arch`` (whisper-small, smollm-135m, llama3.2-1b or
+    gemma2-2b), ``steps`` K-FAC steps of the launcher's setup on the card
+    and on the CPU (plain versions), same weights and uniforms: losses
+    within rtol 1e-3.  ``mfd``: the ``max_factor_dim`` that sets the
+    metas' factor layouts (below the reduced widths: block sides)."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.configs.base import KFACConfig, TrainConfig
     from repro_torch.data.pipeline import SyntheticLMData
@@ -1282,12 +1325,12 @@ def agree_lm(arch: str, steps: int = 4) -> list:
     from repro_torch.training.trainer import Trainer
 
     cfg = get_reduced_config(arch)
-    kcfg = KFACConfig(lambda_init=10.0, t3=5)
+    kcfg = KFACConfig(lambda_init=10.0, t3=5, max_factor_dim=mfd)
     params = LM(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(0))
     hist = {}
     for where in ("cuda", "cpu"):
-        lm = LM(cfg, device=where)
+        lm = LM(cfg, kcfg, device=where)
         data = _ArchData(cfg, SyntheticLMData(cfg.vocab_size, 64, 8,
                                               device=where))
         noise = lambda step, shape, where=where: torch.rand(
@@ -1298,8 +1341,9 @@ def agree_lm(arch: str, steps: int = 4) -> list:
         hist[where] = [h["loss"] for h in tr.fit(
             to_device(params, where), data, steps=steps,
             log=lambda *_: None)["history"]]
-    print(f"[agree:{arch}] reduced {arch} losses cuda {hist['cuda']}")
-    print(f"        plain versions on the cpu {' ' * len(arch)}{hist['cpu']}")
+    tag = arch if mfd == 8192 else f"{arch} max_factor_dim {mfd}"
+    print(f"[agree:{tag}] reduced {arch} losses cuda {hist['cuda']}")
+    print(f"        plain versions on the cpu {' ' * len(tag)}{hist['cpu']}")
     for a, b in zip(hist["cuda"], hist["cpu"]):
         if not abs(a - b) <= 1e-3 * abs(b):
             raise AssertionError(f"{arch}: cuda path {a} vs cpu path {b}")
@@ -2325,10 +2369,11 @@ def race_main(mlp, params, data, kfac_rows: dict,
             "claims": claims, "rows": rows}
 
 
-def lm_adam(arch: str, steps: int = 3) -> dict:
-    """Full-width ``arch`` through ``launch/train.py --optimizer adam --lr
-    1e-3``: the loss finite and no kernel of ``repro_torch.kernels``
-    launched; per-step host ms and peak memory."""
+def lm_adam(arch: str, steps: int = 3, cfg=None) -> dict:
+    """Full-width ``arch`` (``cfg``: cut in depth) through
+    ``launch/train.py --optimizer adam --lr 1e-3``: the loss finite and no
+    kernel of ``repro_torch.kernels`` launched; per-step host ms and peak
+    memory."""
     from repro_torch import kernels as K
     from repro_torch.launch import train
 
@@ -2341,14 +2386,15 @@ def lm_adam(arch: str, steps: int = 3) -> dict:
     res = train.main(["--arch", arch, "--optimizer", "adam", "--lr", "1e-3",
                       "--steps", str(steps)],
                      log=lambda msg: print(f"  {msg}"),
-                     wrap_opt=lambda opt: timed(opt, ms))
+                     wrap_opt=lambda opt: timed(opt, ms), cfg=cfg)
     torch.cuda.synchronize()
     launches = K.launches()
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in res["history"]]
     plain = sorted(ms[1:])
-    print(f"[main:{arch}-adam] full-width {arch}, Adam lr 1e-3, batch 8, "
-          f"seq 64, {steps} steps")
+    depth = "" if cfg is None else f" at {cfg.n_layers} layers"
+    print(f"[main:{arch}-adam] full-width {arch}{depth}, Adam lr 1e-3, "
+          f"batch 8, seq 64, {steps} steps")
     print(f"  per-step ms: {[round(t, 1) for t in ms]}; plain-step median "
           f"{plain[len(plain) // 2]:.1f} ms (step 0 includes the first "
           f"calls' set-up); peak memory {peak / 2 ** 20:.1f} MiB, of which "
@@ -2989,21 +3035,32 @@ DEC_SIDES = (2048, 8192, 512)
 DEC_NS = (8192, 2048)
 
 
-def decoder_metas(arch: str) -> dict:
-    """The full-width decoder's K-FAC layer metas (no weights are built)."""
+def decoder_metas(arch: str, cfg=None) -> dict:
+    """The full-width decoder's K-FAC layer metas (no weights are built);
+    ``cfg``: the arch's config cut in depth."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm import LM
-    return LM(get_config(arch), device="cpu").metas
+    return LM(cfg or get_config(arch), device="cpu").metas
 
 
-def decoder_memory(arch: str) -> dict:
+def side_floats(d: int, kind: str, nb: int) -> int:
+    """The floats of one factor side of width ``d``: d² (full), nb·db²
+    (block: nb diagonal (db, db) blocks) or d (diag)."""
+    if kind == "diag":
+        return d
+    return nb * (d // nb) ** 2
+
+
+def decoder_memory(arch: str, cfg=None) -> dict:
     """The device memory a full-width decoder's K-FAC run holds, reckoned
     from the code (GiB): P a float32 copy of the parameters, F the factors
-    (as much again for the inverses), L its largest stacked (S, d, d)
-    side, I the identity views ``init`` holds before the first refresh,
-    H(m) the exact-Fisher quadratic's head terms for m tangents: the tied
-    head's tangents (m, d, V), and about 4m (B·T, V) arrays of the logits'
-    J-products and the contractions' copies.  Factors and inverses are
+    (as much again for the inverses; a block side holds nb·db² floats),
+    L its largest stacked side, (S, d, d) or a block side's (S·nb, db,
+    db), I the identity views ``init`` holds before the first refresh (one
+    (d, d), or (db, db), a side), H(m) the exact-Fisher quadratic's head
+    terms for m tangents: the tied head's tangents (m, d, V), and about 4m
+    (B·T, V) arrays of the logits' J-products and the contractions'
+    copies.  Factors and inverses are
     written over the old ones (``optimizers/kfac.py::Written``), so one
     set of each lives.  A refresh holds params, delta0 and grads (3P),
     factors, inverses and Newton–Schulz's four (S, d, d) stacks at the
@@ -3016,20 +3073,21 @@ def decoder_memory(arch: str) -> dict:
     stacks three times over; its update three candidate steps, the
     picked one and its scaled and applied copies (10P), the candidates',
     the picked and the current inverses (5F) beside the factors, and
-    H(4)."""
+    H(4).  ``cfg``: the arch's config cut in depth."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm import LM
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     lm = LM(cfg, device="cpu")
     gib = 4 / 2 ** 30
     p = lm.n_params() * gib
-    sides = [(m.n_stack or 1, d, kind) for m in lm.metas.values()
-             for d, kind in ((m.a_dim, m.a_kind), (m.g_dim, m.g_kind))]
-    f = sum(s * d * (d if kind == "full" else 1) for s, d, kind in sides)
-    f *= gib
-    big = max(s * d * d for s, d, kind in sides if kind == "full") * gib
-    ident = sum(d * (d if kind == "full" else 1) for _, d, kind in sides)
-    ident *= gib
+    sides = [(m.n_stack or 1, d, kind, nb) for m in lm.metas.values()
+             for d, kind, nb in ((m.a_dim, m.a_kind, m.a_blocks),
+                                 (m.g_dim, m.g_kind, m.g_blocks))]
+    f = sum(s * side_floats(d, kind, nb) for s, d, kind, nb in sides) * gib
+    big = max(s * side_floats(d, kind, nb) for s, d, kind, nb in sides
+              if kind != "diag") * gib
+    ident = sum(d if kind == "diag" else (d // nb) ** 2
+                for _, d, kind, nb in sides) * gib
     head = lambda m: m * cfg.vocab_size * (cfg.d_model + 4 * DEC_ROWS) * gib
     out = {"params_gib": p, "factors_gib": f, "largest_stack_gib": big,
            "identity_gib": ident, "quad_head_gib": head(2),
@@ -3037,12 +3095,24 @@ def decoder_memory(arch: str) -> dict:
            "update_gib": 7 * p + 2 * f + head(2) + ident,
            "sweep_refresh_gib": 3 * p + 5 * f + 12 * big,
            "sweep_update_gib": 10 * p + 6 * f + head(4)}
-    print(f"[memory:{arch}] reckoned: P {p:.2f}, F {f:.2f}, L {big:.2f}, "
+    label = (arch if cfg.n_layers == get_config(arch).n_layers
+             else f"{arch} at {cfg.n_layers} layers")
+    print(f"[memory:{label}] reckoned: P {p:.2f}, F {f:.2f}, L {big:.2f}, "
           f"I {ident:.2f}, H(2) {head(2):.2f} GiB; refresh "
           f"{out['refresh_gib']:.1f}, update (step 0) {out['update_gib']:.1f}"
           f", γ sweep's refresh {out['sweep_refresh_gib']:.1f} and update "
           f"{out['sweep_update_gib']:.1f} GiB")
     return out
+
+
+def memory_table() -> dict:
+    """``decoder_memory`` of every trained decoder at full width, and of
+    gemma2-2b at the depth its card run keeps (CPU only, no weights)."""
+    return {"smollm-135m": decoder_memory("smollm-135m"),
+            "llama3.2-1b": decoder_memory("llama3.2-1b"),
+            "gemma2-2b": decoder_memory("gemma2-2b"),
+            f"gemma2-2b@{G2_LAYERS}": decoder_memory("gemma2-2b",
+                                                     gemma2_cfg())}
 
 
 def decoder_kernel_rows(dev, rows: dict) -> None:
@@ -3176,26 +3246,34 @@ def decoder_kernel_rows(dev, rows: dict) -> None:
               f"{r['bound'][0] / r['ms']:.1%}); plans {r['plans']}")
 
 
-def decoder_launches(arch: str, steps: int) -> dict:
+def decoder_launches(arch: str, steps: int, cfg=None) -> dict:
     """The launch counts of ``steps`` launcher steps of a full-width dense
-    decoder: ``kfac_launches`` over its stacked dense layers (each one
-    batched launch a side: 7 layers, 14 factor_update launches a
-    statistics step, 7 precondition a step and 21 on a γ sweep), with
-    ns_step on every full factor side (both sides of each stacked layer
-    and the tied embedding's Ḡ; its Ā is diagonal, as is every side no
-    kernel takes) ``ns_iters`` times a refresh and a sweep."""
+    decoder (``cfg``: cut in depth): ``kfac_launches`` over its stacked
+    dense layers (each one batched launch a side: 7 layers, 14
+    factor_update launches a statistics step, 7 applies a step and 21 on a
+    γ sweep), with ns_step on every full or block factor side (both sides
+    of each stacked layer and the tied embedding's Ḡ; its Ā is diagonal,
+    as is every side no kernel takes) ``ns_iters`` times a refresh and a
+    sweep.  A layer with a block side (gemma2's d_ff sides) applies
+    through two matmul launches, the block axis in their batch, and not
+    through precondition, whose two matmul launches they replace."""
     from repro_torch.configs.base import KFACConfig
-    cfg = KFACConfig(lambda_init=10.0, t3=5)
-    metas = decoder_metas(arch).values()
-    layers = sum(m.kind == "dense" for m in metas)
-    full = sum((m.a_kind == "full") + (m.g_kind == "full") for m in metas)
+    kc = KFACConfig(lambda_init=10.0, t3=5)
+    metas = decoder_metas(arch, cfg).values()
+    dense = [m for m in metas if m.kind == "dense"]
+    blocked = sum("block" in (m.a_kind, m.g_kind) for m in dense)
+    sides = sum((m.a_kind != "diag") + (m.g_kind != "diag") for m in metas)
+    sweeps = [s for s in range(steps) if s > 0 and s % kc.t2 == 0]
     passes = [s for s in range(steps)
-              if s < 3 or s % cfg.t3 == 0 or (s > 0 and s % cfg.t2 == 0)]
-    return kfac_launches(cfg, layers, steps,
-                         ns=len(passes) * full * cfg.ns_iters)
+              if s < 3 or s % kc.t3 == 0 or s in sweeps]
+    want = kfac_launches(kc, len(dense), steps,
+                         ns=len(passes) * sides * kc.ns_iters)
+    want["precondition"] -= blocked * (steps + 2 * len(sweeps))
+    return want
 
 
-def decoder_main(arch: str, steps: int, falling: bool = True) -> dict:
+def decoder_main(arch: str, steps: int, falling: bool = True,
+                 cfg=None) -> dict:
     """``Trainer.fit`` of a full-width dense decoder through
     ``launch/train.py``'s ``main`` at the launcher's defaults (batch 8, seq
     64, λ₀ 10, T3 5, blkdiag NS; weights from seed 0), the launch counters
@@ -3204,13 +3282,15 @@ def decoder_main(arch: str, steps: int, falling: bool = True) -> dict:
     finite, nonzero step), with ``falling`` the last loss below the first;
     plain-step, refresh-step and sweep-step ms of ``opt.update``, each
     step's λ, α, μ and ρ, peak memory, and the memory allocated, reserved
-    and free on the device before the run."""
+    and free on the device before the run.  ``cfg``: the arch's config cut
+    in depth, given to ``main``."""
     from repro_torch import kernels as K
     from repro_torch.configs.base import KFACConfig
     from repro_torch.launch import train
 
+    mcfg = cfg
     cfg = KFACConfig(lambda_init=10.0, t3=5)
-    reckoned = decoder_memory(arch)
+    reckoned = decoder_memory(arch, mcfg)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3225,12 +3305,12 @@ def decoder_main(arch: str, steps: int, falling: bool = True) -> dict:
     t0 = time.perf_counter()
     res = train.main(["--arch", arch, "--steps", str(steps)],
                      log=lambda msg: print(f"  {msg}"),
-                     wrap_opt=lambda opt: timed(opt, ms))
+                     wrap_opt=lambda opt: timed(opt, ms), cfg=mcfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.launches()
     peak = torch.cuda.max_memory_allocated()
-    want = decoder_launches(arch, steps)
+    want = decoder_launches(arch, steps, mcfg)
     losses = [h["loss"] for h in res["history"]]
     sweeps = [i for i in range(steps) if i > 0 and i % cfg.t2 == 0]
     refresh = [i for i in range(steps)
@@ -3240,8 +3320,9 @@ def decoder_main(arch: str, steps: int, falling: bool = True) -> dict:
     reckoned_peak = max(reckoned[k] for k in (
         "refresh_gib", "update_gib",
         *(("sweep_refresh_gib", "sweep_update_gib") if sweeps else ())))
-    print(f"[main:{arch}] full-width {arch}, batch 8, seq 64, {steps} steps "
-          f"in {wall:.1f} s")
+    depth = "" if mcfg is None else f" at {mcfg.n_layers} layers"
+    print(f"[main:{arch}] full-width {arch}{depth}, batch 8, seq 64, {steps} "
+          f"steps in {wall:.1f} s")
     print(f"  per-step ms: {[round(t, 1) for t in ms]}")
     print(f"  plain-step median {plain[len(plain) // 2]:.1f} ms; refresh "
           f"steps {[round(ms[i], 1) for i in refresh]} ms (step 0 includes "
@@ -3306,12 +3387,228 @@ def decoders_phase(dev, rows: dict) -> dict:
     return out
 
 
+# ---- the "gemma2" phase: block-diagonal factors, gemma2-2b's training ------
+
+G2_LAYERS = 12                # gemma2-2b cut in depth: 6 local/global pairs
+G2_STEPS = 6                  # the warmup refreshes, a plain step, T3 at 5
+G2_STACK = G2_LAYERS // 2     # each pattern position's stacked layers
+G2_MFD = (64, 48)             # the reduced runs' max_factor_dim
+# full sides' widths: d_model, the query and output maps, the K/V maps'
+# output; the d_ff side of 9216 is two blocks of 4608
+G2_FULL = (2304, 2048, 1024)
+G2_BLOCK = (2, 4608)
+
+
+def gemma2_cfg():
+    """gemma2-2b at full width, cut to ``G2_LAYERS`` layers: the whole
+    model does not fit one card (``decoder_memory("gemma2-2b")``)."""
+    from repro_torch.configs import get_config
+    return get_config("gemma2-2b").replace(n_layers=G2_LAYERS)
+
+
+def gemma2_kernel_rows(dev, rows: dict) -> None:
+    """The kernels at the 12-layer gemma2-2b's shapes, each against its
+    plain version as phase 3 holds it (the errors fold into each row's
+    ``max_abs_err``), timed beside the library calls with plans and bounds
+    as cases ``gemma2-2b ...`` of rows 1-4:
+
+    * factor_update on the block side's rows folded block-major, X (12,
+      512, 4608) into (12, 4608, 4608) (S·nb = 6·2), and on the full
+      sides' (6, 512, d), d 2304, 2048 and 1024, at beta = 0 and 0.95,
+      timed as one unit (a step's four widths) beside baddbmm;
+    * one ns_step on the block stack (12, 4608, 4608) and on (6, 2304,
+      2304), beside bmm + baddbmm;
+    * the apply of the 7 stacked layers of one step through their curvature
+      blocks (``BlockDiagKronecker.precondition``: one matmul a side, the
+      block axis in the batch, on gate, up and down; ``precondition`` on
+      the attention's four), against ``core/inverse.py::
+      apply_block_inverse`` (the reference's order, plain products) and
+      beside bmm / batched matmul calls."""
+    from repro_torch.configs.base import KFACConfig
+    from repro_torch.core import inverse as INV
+    from repro_torch.core.blocks import resolve
+    from repro_torch.kernels import gemm_plan
+    from repro_torch.kernels.factor_update import (factor_update,
+                                                   factor_update_ref)
+    from repro_torch.kernels.ns_step import ns_step, ns_step_ref
+    g = torch.Generator(device=dev).manual_seed(12)
+    sms = gemm_plan.sm_count(dev.index or 0)
+    eps = torch.tensor(0.95, device=dev)
+    nb, db = G2_BLOCK
+
+    def spd(lead, d):
+        f = torch.randn(*lead, d, 512, generator=g, device=dev)
+        m = f @ f.transpose(-1, -2) / 512
+        return m + 0.1 * torch.eye(d, device=dev)
+
+    errs, ops, flops, nbytes, plans = [], [], 0.0, 0.0, []
+    widths = [(G2_STACK * nb, db)] + [(G2_STACK, d) for d in G2_FULL]
+    for batch, d in widths:
+        x = torch.tanh(torch.randn(batch, DEC_ROWS, d, generator=g,
+                                   device=dev))
+        c = spd((batch,), d)
+        for e in (0.0, 0.95):
+            be = torch.tensor(e, device=dev)
+            a = (1 - be) / DEC_ROWS
+            prod = factor_update_ref(x, c, alpha=a, beta=0.0)
+            compare(f"factor_update gemma2 X({batch},{DEC_ROWS},{d}) "
+                    f"beta={e}", factor_update(x, c, alpha=a, beta=be),
+                    factor_update_ref(x, c, alpha=a, beta=be), errs,
+                    scale=prod.abs().max().item())
+            del prod
+        p = gemm_plan.triangle_plan(d, d, False, DEC_ROWS, sms, batch=batch)
+        plans.append(f"({batch}, {DEC_ROWS}, {d}): tile {p.tile}, "
+                     f"{p.tiles} tiles a side, {p.blocks} blocks, splits "
+                     f"{p.splits}")
+        ops.append((x, c))
+        flops += float(batch) * DEC_ROWS * d * (d + 1)
+        nbytes += 4.0 * batch * (DEC_ROWS * d + 2 * d * d)
+    run = lambda f: [f(x, c, alpha=(1 - eps) / DEC_ROWS, beta=eps)
+                     for x, c in ops]
+    fu = rows["factor_update"]
+    fu["cases"]["gemma2-2b"] = dict(
+        unit=f"the {G2_LAYERS}-layer gemma2-2b's stacked factor sides, one "
+             "launch each: X " + ", ".join(f"({b}, {DEC_ROWS}, {d})"
+                                           for b, d in widths)
+             + f" (the first: the d_ff side's {nb} blocks of {db} in the "
+             "batch)",
+        plans=plans,
+        **timings(lambda: run(factor_update), lambda: run(factor_update_ref),
+                  lambda: [torch.baddbmm(c, x.transpose(1, 2), x, beta=0.95,
+                                         alpha=0.05 / DEC_ROWS)
+                           for x, c in ops], reps=3),
+        bound=bound_ms(flops, nbytes))
+    fu["max_abs_err"] = max(fu["max_abs_err"], *errs)
+    del ops, x, c
+    torch.cuda.empty_cache()
+
+    errs = []
+    for batch, d in ((G2_STACK * nb, db), (G2_STACK, G2_FULL[0])):
+        m = spd((batch,), d)
+        x0 = torch.eye(d, device=dev) / m.abs().sum(-1).amax(-1)[:, None,
+                                                                  None]
+        x = ns_step_ref(m, x0)
+        del x0
+        compare(f"ns_step gemma2 stacked ({batch},{d},{d})",
+                ns_step(m, x), ns_step_ref(m, x), errs)
+        rows["ns_step"]["cases"][f"gemma2-2b {d}"] = dict(
+            unit=f"one stacked ns_step, M and X ({batch}, {d}, {d})",
+            plans=[mm_plan(batch, d, d, d)],
+            **timings(lambda: ns_step(m, x), lambda: ns_step_ref(m, x),
+                      lambda: torch.baddbmm(x, x, torch.bmm(m, x), beta=2,
+                                            alpha=-1), reps=3),
+            bound=bound_ms(4.0 * batch * d ** 3, 4.0 * batch * 3 * d * d))
+        del m, x
+        torch.cuda.empty_cache()
+    rows["ns_step"]["max_abs_err"] = max(rows["ns_step"]["max_abs_err"],
+                                         *errs)
+
+    kcfg = KFACConfig()
+    metas = [m for m in decoder_metas("gemma2-2b", gemma2_cfg()).values()
+             if m.kind == "dense"]
+    errs, ops, plans = [], [], []
+    flops = nbytes = 0.0
+
+    def inv_side(d, kind, nb_):
+        return (spd((G2_STACK, nb_), d // nb_) if kind == "block"
+                else spd((G2_STACK,), d))
+
+    def library(meta, inv, v):
+        """The apply in bmm / batched matmul calls: a block side's blocks
+        as the batch of a strided view."""
+        ai, gi = inv["a_inv"], inv["g_inv"]
+        s_, a, gd = v.shape
+        if meta.a_kind == "block":
+            u = torch.bmm(ai.reshape(-1, *ai.shape[-2:]),
+                          v.reshape(-1, a // meta.a_blocks, gd)).view(v.shape)
+        else:
+            u = torch.bmm(ai, v)
+        if meta.g_kind == "block":
+            k = meta.g_blocks
+            return torch.matmul(u.view(s_, a, k, gd // k).transpose(1, 2),
+                                gi).transpose(1, 2).reshape(v.shape)
+        return torch.bmm(u, gi)
+
+    for meta in metas:
+        blk = resolve(meta)(meta, kcfg, dev)
+        inv = {"a_inv": inv_side(meta.a_dim, meta.a_kind, meta.a_blocks),
+               "g_inv": inv_side(meta.g_dim, meta.g_kind, meta.g_blocks)}
+        v = torch.randn(G2_STACK, meta.a_dim, meta.g_dim, generator=g,
+                        device=dev)
+        want = INV.apply_block_inverse(meta, inv, v)
+        compare(f"apply gemma2 {meta.name} ({type(blk).__name__})",
+                blk.precondition(inv, v), want, errs)
+        del want
+        ops.append((meta, blk, inv, v))
+        da = meta.a_dim // meta.a_blocks
+        dg = meta.g_dim // meta.g_blocks
+        a, gd = meta.a_dim, meta.g_dim
+        plans += [mm_plan(G2_STACK * meta.a_blocks, da, gd, da),
+                  mm_plan(G2_STACK * meta.g_blocks, a, dg, dg)]
+        flops += 2.0 * G2_STACK * a * gd * (da + dg)
+        nbytes += 4.0 * G2_STACK * (a * da + gd * dg + 2 * a * gd)
+    pc = rows["precondition"]
+    pc.setdefault("cases", {})["gemma2-2b"] = dict(
+        unit=f"the 7 stacked layers of one {G2_LAYERS}-layer gemma2-2b "
+             "step, Ā⁻¹ V Ḡ⁻¹ through their curvature blocks: "
+             + ", ".join(f"{m.name.split('.', 1)[1]} ({G2_STACK}, {m.a_dim},"
+                         f" {m.g_dim}) {m.a_kind}/{m.g_kind}"
+                         for m, *_ in ops[:7])
+             + "; a block side is one matmul launch with its "
+             f"{nb} blocks of {db} in the batch",
+        plans=plans,
+        **timings(lambda: [b.precondition(i, v) for _, b, i, v in ops],
+                  lambda: [INV.apply_block_inverse(m, i, v)
+                           for m, _, i, v in ops],
+                  lambda: [library(m, i, v) for m, _, i, v in ops], reps=3),
+        bound=bound_ms(flops, nbytes))
+    pc["max_abs_err"] = max(pc["max_abs_err"], *errs)
+    rows["matmul"]["max_abs_err"] = max(rows["matmul"]["max_abs_err"],
+                                        *errs)
+    del ops
+    torch.cuda.empty_cache()
+    for label, r in [("factor_update", fu["cases"]["gemma2-2b"]),
+                     ("apply", pc["cases"]["gemma2-2b"])] + [
+            ("ns_step", rows["ns_step"]["cases"][f"gemma2-2b {d}"])
+            for d in (db, G2_FULL[0])]:
+        print(f"  {label} {r['unit']}: kernel {r['ms']:.4f} "
+              f"[{r['eager_ms']['ms']:.4f}] ms, plain {r['plain_ms']:.4f} "
+              f"ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}; "
+              f"{r['bound'][0] / r['ms']:.1%}); plans {r['plans']}")
+
+
+def gemma2_phase(dev, rows: dict) -> dict:
+    """The "gemma2" phase: the kernels at the 12-layer gemma2-2b's shapes
+    (``gemma2_kernel_rows``); reduced gemma2-2b 4 steps on the card and on
+    the CPU at ``max_factor_dim`` 64 and 48 (block sides); gemma2-2b at
+    full width cut to 12 layers, 6 K-FAC steps through ``launch/train.py``
+    (the warmup refreshes, a plain step, the λ step at 4, the T3 refresh
+    at 5) with exact launches, its loss held finite, memory before and
+    peak beside ``decoder_memory``'s reckoning, then 3 Adam steps.  Alone:
+    ``python3 -c 'import chip_smoke as c, torch; c.gemma2_phase(
+    torch.device("cuda"), c.kernel_rows_stub())'``."""
+    t0 = time.perf_counter()
+    memory_table()
+    gemma2_kernel_rows(dev, rows)
+    out = {"agree": {str(m): agree_lm("gemma2-2b", mfd=m) for m in G2_MFD}}
+    # the loss is held finite, not falling: 6 steps of 512 tokens over a
+    # vocab of 256,000 leave it near its first value, as llama3.2-1b's
+    out["gemma2-2b"] = decoder_main("gemma2-2b", G2_STEPS, falling=False,
+                                    cfg=gemma2_cfg())
+    out["gemma2-2b_adam"] = lm_adam("gemma2-2b", cfg=gemma2_cfg())
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def kernel_rows_stub() -> dict:
-    """The fields of phase 3's rows that ``decoder_kernel_rows`` adds to,
-    for running the "decoders" phase alone."""
+    """The fields of phase 3's rows that ``decoder_kernel_rows`` and
+    ``gemma2_kernel_rows`` add to, for running the "decoders" or the
+    "gemma2" phase alone."""
     return {"factor_update": {"cases": {}, "max_abs_err": 0.0},
             "ns_step": {"cases": {}, "max_abs_err": 0.0},
-            "precondition": {"max_abs_err": 0.0}}
+            "precondition": {"max_abs_err": 0.0},
+            "matmul": {"max_abs_err": 0.0}}
 
 
 def main() -> None:
@@ -3932,6 +4229,13 @@ def main() -> None:
     print(f"[time] decoders phase done at "
           f"{time.perf_counter() - t_start:.1f} s ({dec_out['phase_s']:.1f}"
           f" s)")
+    # ---- gemma2: block-diagonal factors, gemma2-2b's K-FAC training ----
+    g2_out = gemma2_phase(dev, rows)
+    for label in ("gemma2-2b", "gemma2-2b_adam"):
+        launches_by_path[f"g2_{label}"] = g2_out[label]["launches"]
+    print(f"[time] gemma2 phase done at "
+          f"{time.perf_counter() - t_start:.1f} s ({g2_out['phase_s']:.1f}"
+          f" s)")
     # ---- 7. where the time goes --------------------------------------
     for label, cfg in paths.items():
         profiles[label] = profile_path(label, mlp, params, data, cfg, steps)
@@ -3974,6 +4278,7 @@ def main() -> None:
     print(json.dumps({"race": race_out}))
     print(json.dumps({"conv": conv_out}))
     print(json.dumps({"decoders": dec_out}))
+    print(json.dumps({"gemma2": g2_out}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -152,6 +152,9 @@ class KFACConfig:
     use_rescale: bool = True          # exact-F alpha rescale     [S6.4]
     fixed_lr: float = 0.05            # used only when use_rescale=False
 
+    max_factor_dim: int = 8_192       # a factor side above this is split
+                                      # into diagonal blocks of at most
+                                      # this width (core/factors.py)
     fused_stats: bool = False         # contract the factor statistics
                                       # inside the passes [S5]
                                       # (core/fused.py; not on an LM yet)

@@ -42,25 +42,27 @@ class CurvatureBlock:
         m = self.meta
         lead = (m.n_stack,) if m.n_stack else ()
         zero = torch.zeros((), device=self.device)
-        z = lambda d, kind: zero.expand(F.factor_shape(d, kind, lead))
-        return {"a": z(m.a_dim, m.a_kind), "g": z(m.g_dim, m.g_kind)}
+        z = lambda d, kind, nb: zero.expand(F.factor_shape(d, kind, nb, lead))
+        return {"a": z(m.a_dim, m.a_kind, m.a_blocks),
+                "g": z(m.g_dim, m.g_kind, m.g_blocks)}
 
     def identity_inverse(self) -> Dict[str, Any]:
         """The inverses before the first refresh: ones on a diagonal side,
-        else one (d, d) identity viewed across the stacked layers (the
-        first refresh reads it as its NS hot start), so that a stack of S
-        costs d² floats rather than S·d²."""
+        else one (d, d) identity (a block side: one (db, db)) viewed across
+        the stacked layers and the blocks (the first refresh reads it as
+        its NS hot start), so that a stack of S costs d² floats rather
+        than S·d²."""
         m = self.meta
         lead = (m.n_stack,) if m.n_stack else ()
 
-        def one(d, kind):
-            shape = F.factor_shape(d, kind, lead)
+        def one(d, kind, nb):
+            shape = F.factor_shape(d, kind, nb, lead)
             if kind == "diag":
                 return torch.ones(shape, device=self.device)
-            return torch.eye(d, device=self.device).expand(shape)
+            return torch.eye(shape[-1], device=self.device).expand(shape)
 
-        return {"a_inv": one(m.a_dim, m.a_kind),
-                "g_inv": one(m.g_dim, m.g_kind)}
+        return {"a_inv": one(m.a_dim, m.a_kind, m.a_blocks),
+                "g_inv": one(m.g_dim, m.g_kind, m.g_blocks)}
 
     # -- statistics (S5) ------------------------------------------------
     def stats_contrib(self, rec, gprobe, n: int) -> Dict[str, Any]:

@@ -7,11 +7,10 @@ divided by the step's *global* token count N.
 
 Factor storage layouts by kind (``lead`` = (n_stack,) for stacked layers):
   full : (*lead, d, d)
-  diag : (*lead, d)         the vocab-sized sides (embed A, head G)
-A dense or conv side above ``MAX_FACTOR_DIM`` is of kind ``block`` (the
-reference's TP / block-diagonal factors), which no curvature block handles
-yet: the optimizer refuses such a layer (gemma2's d_ff of 9216 is the
-first); every side of whisper-small is at most 3072.
+  block: (*lead, nb, db, db)  a side above ``KFACConfig.max_factor_dim``,
+                              halved until each diagonal block fits
+                              (gemma2's d_ff of 9216: two blocks of 4608)
+  diag : (*lead, d)           the vocab-sized sides (embed A, head G)
 """
 from __future__ import annotations
 
@@ -19,30 +18,50 @@ import torch
 
 from repro_torch.core.tags import LayerMeta
 
-# the reference's ``KFACConfig.max_factor_dim`` default
-MAX_FACTOR_DIM = 8_192
+def factor_layout(dim: int, sharded: bool, tp: int, max_dim: int):
+    """``(kind, blocks)`` for a factor side of width ``dim``: the side is
+    halved (or cut at the next divisor) until each block is at most
+    ``max_dim``; ``diag`` where no divisor does.  The port passes
+    ``sharded=False, tp=1`` (no tensor-parallel mesh yet)."""
+    blocks = 1
+    if sharded and tp > 1 and dim % tp == 0:
+        blocks = tp
+    while dim // blocks > max_dim:
+        nxt = blocks * 2
+        while dim % nxt and nxt <= dim:
+            nxt += blocks
+        if nxt > dim:
+            return "diag", 1
+        blocks = nxt
+    return ("block", blocks) if blocks > 1 else ("full", 1)
 
 
-def factor_layout(dim: int) -> str:
-    """The kind of a dense or conv factor side of width ``dim``."""
-    return "full" if dim <= MAX_FACTOR_DIM else "block"
+def factor_shape(dim: int, kind: str, blocks: int = 1, lead=()):
+    if kind == "diag":
+        return (*lead, dim)
+    if kind == "block":
+        return (*lead, blocks, dim // blocks, dim // blocks)
+    return (*lead, dim, dim)
 
 
-def factor_shape(dim: int, kind: str, lead=()):
-    return (*lead, dim) if kind == "diag" else (*lead, dim, dim)
-
-
-def outer_sum(x, kind: str = "full", stacked: bool = False):
+def outer_sum(x, kind: str = "full", stacked: bool = False,
+              blocks: int = 1):
     """Sum of outer products over every batch-ish dim of x (..., d): a
-    (d, d) matrix (``full``) or its diagonal (``diag``).  ``stacked`` keeps
-    x's leading dim: (S, ..., d) -> (S, d, d) or (S, d)."""
+    (d, d) matrix (``full``), its diagonal (``diag``) or the ``blocks``
+    diagonal (db, db) blocks of it (``block``: (nb, db, db), the
+    reference's ``"nbd,nbe->bde"``).  ``stacked`` keeps x's leading dim:
+    (S, ..., d) -> (S, d, d), (S, d) or (S, nb, db, db)."""
     xf = x.float()
     xf = (xf.reshape(xf.shape[0], -1, xf.shape[-1]) if stacked
           else xf.reshape(-1, xf.shape[-1]))
     if kind == "diag":
         return (xf * xf).sum(-2)
+    if kind == "block":
+        d = xf.shape[-1]
+        xr = xf.reshape(*xf.shape[:-1], blocks, d // blocks)
+        return torch.einsum("...nbd,...nbe->...bde", xr, xr)
     if kind != "full":
-        raise NotImplementedError(f"factor kind {kind!r} is not ported yet")
+        raise ValueError(f"unknown factor kind {kind!r}")
     return xf.transpose(-1, -2) @ xf
 
 
@@ -69,5 +88,5 @@ def g_from_cotangent(cot, meta: LayerMeta, n_norm: int):
     """G contribution from probe cotangents of the (1/N)-normalized sampled
     loss: per-token g = N * cot, and G = (1/N) Σ g gᵀ = N Σ cot cotᵀ
     (per group for a stacked layer)."""
-    return outer_sum(cot.detach(), meta.g_kind,
-                     stacked=meta.n_stack > 0) * float(n_norm)
+    return outer_sum(cot.detach(), meta.g_kind, stacked=meta.n_stack > 0,
+                     blocks=meta.g_blocks) * float(n_norm)

@@ -1,7 +1,10 @@
 """Damped factor inverses + factored Tikhonov damping (S4.2, S6.3).
 
-Mirrors the ``full`` and ``diag`` layouts of ``repro/core/inverse.py``
-(the eigen path: ``full`` only).  Each block's
+Mirrors the ``full``, ``block`` and ``diag`` layouts of
+``repro/core/inverse.py`` (the eigen path: ``full`` only).  A ``block``
+side is a stack of diagonal blocks (*lead, nb, db, db): its trace sums the
+blocks, its damping adds to every block, and its inverse is the blocks'
+inverses (one batch of lead·nb matrices).  Each block's
 factors are damped as ``(Ā + π γ I) ⊗ (G + γ/π I)`` with the trace-norm
 ``π = sqrt( (tr Ā / d_A) / (tr G / d_G) )``.  Methods: ``eigh`` (exact),
 ``ns`` (Newton–Schulz, hot-startable; its iteration body is the
@@ -41,7 +44,10 @@ def factor_trace(arr, kind: str):
     """Total trace per lead index (stack, candidate): shape = lead dims."""
     if kind == "diag":
         return arr.sum(-1)
-    return torch.diagonal(arr, dim1=-2, dim2=-1).sum(-1)
+    tr = torch.diagonal(arr, dim1=-2, dim2=-1).sum(-1)
+    if kind == "block":
+        tr = tr.sum(-1)                    # over the block axis
+    return tr
 
 
 def pi_trace(a, a_kind, a_dim, g, g_kind, g_dim):
@@ -60,11 +66,14 @@ def _outer(gamma, pi):
 
 
 def _add_damp(arr, kind: str, damp):
-    """arr + damp·I (diag: + damp); damp has the lead-dims shape and
-    broadcasts over arr's (a (c,) damp on a (d, d) factor gives (c, d, d))."""
+    """arr + damp·I (diag: + damp); damp has the lead-dims shape (no block
+    axis) and broadcasts over arr's (a (c,) damp on a (d, d) factor gives
+    (c, d, d); a (c, S) one on (S, nb, db, db) blocks (c, S, nb, db, db))."""
     if kind == "diag":
         return arr + damp[..., None]
     eye = torch.eye(arr.shape[-1], dtype=arr.dtype, device=arr.device)
+    if kind == "block":
+        return arr + damp[..., None, None, None] * eye
     return arr + damp[..., None, None] * eye
 
 
@@ -212,6 +221,11 @@ def _mul_left(inv, kind: str, v):
     """Multiply along the d_in (second-to-last) axis of v."""
     if kind == "diag":
         return v * inv[..., :, None]
+    if kind == "block":
+        nb, db = inv.shape[-3], inv.shape[-1]
+        lead = v.shape[:-2]
+        vr = v.reshape(*lead, nb, db, v.shape[-1])
+        return (inv @ vr).reshape(*lead, nb * db, v.shape[-1])
     return inv @ v
 
 
@@ -219,6 +233,10 @@ def _mul_right(inv, kind: str, v):
     """Multiply along the d_out (last) axis of v."""
     if kind == "diag":
         return v * inv[..., None, :]
+    if kind == "block":
+        nb, db = inv.shape[-3], inv.shape[-1]
+        vr = v.reshape(*v.shape[:-1], nb, db).transpose(-3, -2)
+        return (vr @ inv).transpose(-3, -2).reshape(v.shape)
     return v @ inv
 
 

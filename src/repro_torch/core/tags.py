@@ -35,10 +35,10 @@ class LayerMeta:
     kind: str = "dense"             # dense | conv | embed | head
     n_stack: int = 0                # >0: leading stack dim on weight/factors
     n_expert: int = 0               # >0: per-expert factors (not ported)
-    a_kind: str = "full"            # full | diag | block (not ported)
+    a_kind: str = "full"            # full | diag | block
     g_kind: str = "full"
     a_blocks: int = 1               # block count when a_kind == "block"
-    g_blocks: int = 1               # (read by the refresh planner's costs)
+    g_blocks: int = 1               # (core/factors.py::factor_layout)
     has_bias: bool = False          # homogeneous coordinate appended to ā
     probe_tshard: bool = False      # the reference's context-parallel probe
                                     # flag: never set by the port, carried

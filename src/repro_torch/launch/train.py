@@ -4,9 +4,13 @@
 
 trains a full-width arch with K-FAC on the card (``--device cuda``, the
 default; ``--device cpu`` runs the plain PyTorch versions, e.g. with
-``--reduced``).  ``--arch`` offers the dense decoders smollm-135m and
-llama3.2-1b (the default, as the reference's) and the encoder-decoder
+``--reduced``).  ``--arch`` offers the dense decoders smollm-135m,
+llama3.2-1b (the default, as the reference's) and gemma2-2b (sliding
+window, both softcaps, and block-diagonal factors on its d_ff of 9216,
+above ``KFACConfig.max_factor_dim``) and the encoder-decoder
 whisper-small: the archs whose training is held against the reference.
+The ``KFACConfig`` is built before the LM and given to it, as the
+reference launcher does: it sets the metas' factor layouts.
 ``--optimizer sgd_momentum`` or ``adam`` trains with a first-order
 baseline at ``--lr`` (default 1e-3) instead.  The reference launcher's
 defaults: batch 8, seq 64, λ₀ 10, T3 5, ``--inv_mode blkdiag`` with
@@ -40,7 +44,7 @@ from repro_torch.training.checkpoint import Checkpointer
 from repro_torch.training.trainer import Trainer
 
 
-TRAINED_ARCHS = ("llama3.2-1b", "smollm-135m", "whisper-small")
+TRAINED_ARCHS = ("llama3.2-1b", "smollm-135m", "gemma2-2b", "whisper-small")
 
 
 class _ArchData:
@@ -58,9 +62,11 @@ class _ArchData:
         return b
 
 
-def main(argv=None, log=print, wrap_opt=None):
+def main(argv=None, log=print, wrap_opt=None, cfg=None):
     """Parse ``argv`` and train.  ``wrap_opt``, given, maps the optimizer
-    to the one the trainer calls (e.g. one that times its updates)."""
+    to the one the trainer calls (e.g. one that times its updates).
+    ``cfg``, given, is the ``ModelConfig`` trained in place of the arch's
+    (e.g. the arch cut in depth); its ``name`` must be the arch's."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b",
                     choices=TRAINED_ARCHS)
@@ -86,11 +92,15 @@ def main(argv=None, log=print, wrap_opt=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    cfg = (get_reduced_config(args.arch) if args.reduced
-           else get_config(args.arch))
+    arch_cfg = (get_reduced_config(args.arch) if args.reduced
+                else get_config(args.arch))
+    if cfg is not None and cfg.name != arch_cfg.name:
+        raise ValueError(f"cfg {cfg.name!r} is not --arch's "
+                         f"{arch_cfg.name!r}")
+    cfg = cfg or arch_cfg
     kcfg = KFACConfig(lambda_init=args.lambda_init, inv_mode=args.inv_mode,
                       refresh_mode=args.refresh_mode, tau1=args.tau1, t3=5)
-    lm = LM(cfg, device=args.device)
+    lm = LM(cfg, kcfg, device=args.device)
     opt = optimizers.get(args.optimizer, lm, kfac_cfg=kcfg,
                          device=args.device, lr=args.lr)
     if wrap_opt is not None:

@@ -41,11 +41,15 @@ def conv(tg: Tagger, name: str, w, x, *, spatial: Tuple[int, ...],
 
 def conv_meta(name: str, path: Tuple, *, spatial: Tuple[int, ...],
               stride: Tuple[int, ...], c_in: int, d_out: int,
-              padding: str = "VALID", bias: bool = True) -> LayerMeta:
-    """LayerMeta for one KFC conv block (kind="conv", tap-major weight)."""
+              padding: str = "VALID", bias: bool = True,
+              max_factor_dim: int = 8_192) -> LayerMeta:
+    """LayerMeta for one KFC conv block (kind="conv", tap-major weight);
+    the factor layouts come from ``max_factor_dim``, as the reference's."""
     d_in = math.prod(spatial) * c_in
+    a_kind, a_blocks = FA.factor_layout(d_in, False, 1, max_factor_dim)
+    g_kind, g_blocks = FA.factor_layout(d_out, False, 1, max_factor_dim)
     return LayerMeta(name=name, param_path=path, d_in=d_in, d_out=d_out,
-                     kind="conv", a_kind=FA.factor_layout(d_in),
-                     g_kind=FA.factor_layout(d_out), has_bias=bias,
+                     kind="conv", a_kind=a_kind, g_kind=g_kind,
+                     a_blocks=a_blocks, g_blocks=g_blocks, has_bias=bias,
                      conv_spatial=tuple(spatial), conv_stride=tuple(stride),
                      conv_in=c_in, conv_pad=padding)

@@ -1,8 +1,10 @@
 """The LM (mirrors ``repro/models/lm.py``): the dense decoder families with
 global and sliding-window (local) attention, attention and logit softcaps
-and a dense MLP (llama, gemma2), served, and the llama family (smollm,
-llama3.2) trained; and the encoder-decoder whisper with its Conv1D mel
-stem, trained.
+and a dense MLP (llama, gemma2), served and trained; and the
+encoder-decoder whisper with its Conv1D mel stem, trained.  gemma2's d_ff
+of 9216 is above ``KFACConfig.max_factor_dim`` (8192), so the d_ff sides
+of its MLP take block-diagonal factors (two blocks of 4608;
+``core/blocks/kron.py::BlockDiagKronecker``).
 
 Layers form a repeating *pattern* of block positions.  Parameters of each
 pattern position are stacked over ``n_groups = n_layers / period`` exactly
@@ -66,7 +68,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import KFACConfig, ModelConfig
 from repro_torch.core.factors import factor_layout
 from repro_torch.core.tags import LayerMeta, Tagger, merge_records
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
@@ -178,12 +180,16 @@ def _index(tree, g: int):
 
 
 class LM:
-    """The LM (llama, gemma2, whisper).  ``device`` defaults to ``"cuda"``
-    and raises without a card; pass ``"cpu"`` for the plain PyTorch
-    versions."""
+    """The LM (llama, gemma2, whisper).  ``kfac`` (default
+    ``KFACConfig()``) gives the metas' factor layouts through its
+    ``max_factor_dim``, as the reference's ``LM(cfg, kfac, mesh)``.
+    ``device`` defaults to ``"cuda"`` and raises without a card; pass
+    ``"cpu"`` for the plain PyTorch versions."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, kfac: Optional[KFACConfig] = None,
+                 device="cuda"):
         self.cfg = cfg
+        self.kfac = kfac or KFACConfig()
         self.device = resolve_device(device)
         self.pattern = build_pattern(cfg)
         _check_ported(cfg, self.pattern)
@@ -260,6 +266,7 @@ class LM:
     # ------------------------------------------------------------------
     def _layer_metas(self) -> Dict[str, LayerMeta]:
         cfg = self.cfg
+        mfd = self.kfac.max_factor_dim
         metas: Dict[str, LayerMeta] = {}
 
         def add(name, path, n_stack):
@@ -267,11 +274,14 @@ class LM:
             for k in path:
                 pdef = pdef[k]
             d_in, d_out = pdef.shape[-2:]
+            # no tensor-parallel mesh yet: sharded=False, tp=1
+            a_kind, a_blocks = factor_layout(d_in, False, 1, mfd)
+            g_kind, g_blocks = factor_layout(d_out, False, 1, mfd)
             metas[name] = LayerMeta(name=name, param_path=path, d_in=d_in,
                                     d_out=d_out, kind="dense",
-                                    n_stack=n_stack,
-                                    a_kind=factor_layout(d_in),
-                                    g_kind=factor_layout(d_out))
+                                    n_stack=n_stack, a_kind=a_kind,
+                                    g_kind=g_kind, a_blocks=a_blocks,
+                                    g_blocks=g_blocks)
 
         weight = {"q": "wq", "k": "wk", "v": "wv", "o": "wo", "gate": "wg",
                   "up": "wu", "down": "wd"}
@@ -291,10 +301,12 @@ class LM:
         if cfg.frontend == "audio":
             metas["enc.conv1"] = conv_meta(
                 "enc.conv1", ("enc_conv1",), spatial=(3,), stride=(1,),
-                c_in=cfg.n_mels, d_out=cfg.d_model, padding="SAME")
+                c_in=cfg.n_mels, d_out=cfg.d_model, padding="SAME",
+                max_factor_dim=mfd)
             metas["enc.conv2"] = conv_meta(
                 "enc.conv2", ("enc_conv2",), spatial=(3,), stride=(2,),
-                c_in=cfg.d_model, d_out=cfg.d_model, padding="SAME")
+                c_in=cfg.d_model, d_out=cfg.d_model, padding="SAME",
+                max_factor_dim=mfd)
         # embedding: diagonal A (token frequencies), full G on d_model
         metas["embed"] = LayerMeta(
             name="embed", param_path=("embed",), d_in=cfg.vocab_size,

@@ -9,8 +9,9 @@ contracted inside the passes (``fused_stats=True``, ``core/fused.py``; not
 on an LM yet).
 Models: the MLP autoencoders, Bernoulli or Gaussian, and the conv
 classifier, categorical (``core/fisher.py::quad_logits``), and the LM
-(``quad_lm``; trained so far: whisper, smollm and llama3.2, blkdiag with
-the exact-F re-scaling; ``inv_mode="tridiag"`` on a model without
+(``quad_lm``; trained so far: whisper, smollm, llama3.2 and gemma2, whose
+d_ff sides are block-diagonal, blkdiag with the exact-F re-scaling;
+``inv_mode="tridiag"`` on a model without
 ``layer_order``, an LM or the conv classifier, runs the block-diagonal
 path, as in the reference).  The reference is functional; here a
 statistics pass or a refresh writes its factors or inverses over a set the

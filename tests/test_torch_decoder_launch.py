@@ -114,13 +114,14 @@ def test_launcher_option_on_decoder(arch, case, tmp_path):
 
 def test_launcher_defaults_to_llama():
     """``--arch`` defaults to llama3.2-1b, as the reference launcher's
-    does; the decoders and whisper-small are the archs it trains."""
+    does; the decoders (gemma2-2b among them) and whisper-small are the
+    archs it trains."""
     logs = []
     tlaunch.main(["--reduced", "--device", "cpu", "--steps", "1"],
                  log=logs.append)
     assert logs[0].startswith("[train] arch=llama3.2-1b-reduced ")
     assert tlaunch.TRAINED_ARCHS == ("llama3.2-1b", "smollm-135m",
-                                     "whisper-small")
+                                     "gemma2-2b", "whisper-small")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

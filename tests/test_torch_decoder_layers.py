@@ -5,7 +5,8 @@ grouped-query ``attention_train`` with RoPE'd q and k under backward,
 the head's sampled targets over the full vocabs, the tied head's loss
 (``name=None``: no ``lm_head`` block; the head's gradient reaches
 ``embed`` through its transpose), and the full-width metas, whose factor
-sides are all ``full`` (llama's 8192 is exactly ``MAX_FACTOR_DIM``).
+sides are all ``full`` (llama's 8192 is exactly the default
+``KFACConfig.max_factor_dim``).
 
 Tolerances: rtol 1e-5 with an atol of 1e-5 of the array's largest
 magnitude; the sampled targets bitwise.  The model and the engine are
@@ -25,6 +26,7 @@ from repro.models import head as jhead
 from repro.models import layers as jlayers
 from repro.models.lm import LM as JLM
 from repro_torch.configs import get_config, get_reduced_config
+from repro_torch.configs.base import KFACConfig
 from repro_torch.core import factors
 from repro_torch.core.tags import Tagger
 from repro_torch.models import head, layers
@@ -35,24 +37,34 @@ from test_torch_whisper_parity import _close, _head_uniforms, _key
 torch.set_num_threads(1)
 
 
+# the LayerMeta fields both packages' metas must agree on
+META_FIELDS = ("param_path", "d_in", "d_out", "kind", "n_stack", "a_kind",
+               "g_kind", "a_blocks", "g_blocks")
+
+
+def assert_metas_agree(metas, jmetas):
+    assert sorted(metas) == sorted(jmetas)
+    for name, m in metas.items():
+        for f in META_FIELDS:
+            assert getattr(m, f) == getattr(jmetas[name], f), (name, f)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_full_width_metas_are_the_reference(arch):
     """Every factor side of the full-width decoder is ``full`` in both
-    packages (llama's d_ff of 8192 is exactly MAX_FACTOR_DIM), and the
-    metas agree field for field; only the configs are built."""
+    packages (llama's d_ff of 8192 is exactly the default
+    ``max_factor_dim``), and the metas agree field for field; only the
+    configs are built."""
     cfg = get_config(arch)
     jm = JLM(j_config(arch)).metas
     lm = LM(cfg, device="cpu")
     sides = {cfg.d_model, cfg.d_ff, cfg.kv_dim, cfg.q_dim}
+    mfd = KFACConfig().max_factor_dim
     for side in sides:
-        assert factors.factor_layout(side) == "full"
+        assert factors.factor_layout(side, False, 1, mfd) == ("full", 1)
         assert j_layout(side, False, 1, JKFACConfig().max_factor_dim) == (
             "full", 1)
-    assert sorted(lm.metas) == sorted(jm)
-    for name, m in lm.metas.items():
-        for f in ("param_path", "d_in", "d_out", "kind", "n_stack", "a_kind",
-                  "g_kind"):
-            assert getattr(m, f) == getattr(jm[name], f), (name, f)
+    assert_metas_agree(lm.metas, jm)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
