@@ -267,7 +267,7 @@ on failure (nothing is caught):
             steps (no launch); full-width llama3.2-1b (16 layers, d 2048,
             32 over 8 heads, d_ff 8192, vocab 128256, tied head) 6 steps:
             the warmup refreshes, the lambda step at 4, the T3 refresh at
-            5.  Exact launch counts (``decoder_launches``), the loss finite
+            5.  Exact launch counts (``lm_launches``), the loss finite
             and below its first value at the last step, plain-step,
             refresh-step and sweep-step ms, the memory allocated, reserved
             and free before each run and its peak beside the reckoning of
@@ -292,8 +292,37 @@ on failure (nothing is caught):
             softcaps 50 and 30, tied head) cut to 12 layers (the 26 do not
             fit the card: ``decoder_memory``) through ``launch/train.py``'s
             ``main(..., cfg=...)`` 6 steps at its defaults, exact launch
-            counts (``decoder_launches``), the loss finite, step ms, memory
+            counts (``lm_launches``), the loss finite, step ms, memory
             before and peak beside the reckoning; then 3 Adam steps.
+   lm_eigen eigen mode (EKFAC), the fused fixed-lr chain, ``fused_stats``
+            and the curvature bundle on the LMs (``lm_eigen_phase``).  The
+            kernels' new shapes, each against its plain version: the
+            batched rotate_rescale at smollm-135m's 7 stacked layers (S =
+            30) and whisper-small's (12, 768, 3072) / (12, 3072, 768) (bmm,
+            div, bmm, bmm, bmm); the block eigen apply of gemma2-2b's gate,
+            up and down at the eigen run's depth (four matmul launches, a
+            block side's blocks in their batch; bmm / batched matmul); the
+            batched precond_momentum and axpy_momentum at smollm-135m's
+            stacked layers, ΣD² to relative 1e-4 (bmm, baddbmm, sum).
+            Reduced smollm-135m, gemma2-2b at ``max_factor_dim`` 64 and
+            whisper-small, 4 steps on the card and on the CPU in eigen mode,
+            on the fused chain (momentum 0.9, KL clip 1e-3) and with
+            ``fused_stats`` (eigen): losses within rtol 1e-3.  Full width
+            through ``launch/train.py`` with exact launches
+            (``lm_launches``), losses finite, every update applied and the
+            peak within 10% of the path's reckoning (``decoder_memory``'s
+            eigen and chain columns): smollm-135m in eigen mode 25 steps
+            (the γ sweep at 20) and on the fused chain (lr 0.05) 25 steps;
+            whisper-small in eigen mode with ``fused_stats`` 6 steps (its
+            reckoning: the blkdiag whisper run's peak plus s and damp);
+            gemma2-2b in eigen mode at the deepest even cut whose eigen
+            reckoning leaves 25% of the card's free memory
+            (``gemma2_eigen_layers``: 6 layers), 6 steps, before its
+            sweep.  The bundles of the smollm chain's last state (a fresh
+            eigh of its factors) and of whisper's live eigen state, written
+            by ``BundleWriter`` and read back bit for bit, their apply held
+            to the eigh-damped inverses' within min(5e-6·κ, 2e-3) and to
+            the live engine's eigen apply within 1e-5.
 7. profile  each autoencoder path twice more: per-stage host times
             (synchronized; on tridiag also each eigh of the refresh stage,
             and eigh's share of each refresh step), then device time by
@@ -305,8 +334,8 @@ on failure (nothing is caught):
 8. summary  the ``{"main": ...}`` (the modes' runs under ``modes_*``, the
             ckpt phase's under ``ckpt_*``, the fused autoencoder's under
             ``ae_fs_*``), ``{"serve": ...}``, ``{"race": ...}``,
-            ``{"conv": ...}``, ``{"decoders": ...}``, ``{"gemma2": ...}``
-            and ``{"kernels": [...]}`` lines, the
+            ``{"conv": ...}``, ``{"decoders": ...}``, ``{"gemma2": ...}``,
+            ``{"lm_eigen": ...}`` and ``{"kernels": [...]}`` lines, the
             nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Bounds are the larger of fp32 operations over 67 TFLOP/s and bytes over
@@ -324,6 +353,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1310,12 +1340,14 @@ def factor_update_row(dev, randn, spd, sides, log) -> dict:
 
 
 
-def agree_lm(arch: str, steps: int = 4, mfd: int = 8192) -> list:
+def agree_lm(arch: str, steps: int = 4, mfd: int = 8192, **kw) -> list:
     """Reduced ``arch`` (whisper-small, smollm-135m, llama3.2-1b or
     gemma2-2b), ``steps`` K-FAC steps of the launcher's setup on the card
     and on the CPU (plain versions), same weights and uniforms: losses
     within rtol 1e-3.  ``mfd``: the ``max_factor_dim`` that sets the
-    metas' factor layouts (below the reduced widths: block sides)."""
+    metas' factor layouts (below the reduced widths: block sides); ``kw``:
+    other ``KFACConfig`` fields (eigen mode, the fused chain,
+    ``fused_stats``)."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.configs.base import KFACConfig, TrainConfig
     from repro_torch.data.pipeline import SyntheticLMData
@@ -1325,7 +1357,7 @@ def agree_lm(arch: str, steps: int = 4, mfd: int = 8192) -> list:
     from repro_torch.training.trainer import Trainer
 
     cfg = get_reduced_config(arch)
-    kcfg = KFACConfig(lambda_init=10.0, t3=5, max_factor_dim=mfd)
+    kcfg = KFACConfig(lambda_init=10.0, t3=5, max_factor_dim=mfd, **kw)
     params = LM(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(0))
     hist = {}
@@ -1341,7 +1373,8 @@ def agree_lm(arch: str, steps: int = 4, mfd: int = 8192) -> list:
         hist[where] = [h["loss"] for h in tr.fit(
             to_device(params, where), data, steps=steps,
             log=lambda *_: None)["history"]]
-    tag = arch if mfd == 8192 else f"{arch} max_factor_dim {mfd}"
+    tag = " ".join([arch] + ([f"max_factor_dim {mfd}"] if mfd != 8192
+                             else []) + [f"{k}={v}" for k, v in kw.items()])
     print(f"[agree:{tag}] reduced {arch} losses cuda {hist['cuda']}")
     print(f"        plain versions on the cpu {' ' * len(tag)}{hist['cpu']}")
     for a, b in zip(hist["cuda"], hist["cpu"]):
@@ -1353,24 +1386,16 @@ def agree_lm(arch: str, steps: int = 4, mfd: int = 8192) -> list:
 W_STEPS = 10
 
 
-def whisper_launches(steps: int, n_refresh: int) -> dict:
-    """The launch counts of ``steps`` launcher steps of full-width
-    whisper-small, ``n_refresh`` of them refreshes.  Each stats step
-    launches patch_factor twice (conv1, conv2), factor_update on both sides
-    of the 18 stacked dense layers and on the conv stems' G sides (38) and
-    precondition on the 20 Kronecker blocks; each refresh ns_step on the 42
-    full factors times 12 iterations (the embedding's G, the head's Ā:
-    their diagonal sides take no kernel), each ns_step and precondition
-    two matmul launches."""
-    from repro_torch import kernels as K
+def whisper_launches(stop: int, start: int = 0) -> dict:
+    """The launch counts of launcher steps ``start`` to ``stop`` of
+    full-width whisper-small at the launcher's defaults (``lm_launches``;
+    the warmup re-armed at ``start``): patch_factor on the two conv stems
+    and factor_update on the 38 other factor sides a step, precondition on
+    the 20 Kronecker blocks a step, ns_step on the 42 full factors 12 times
+    a refresh (the embedding's Ā and the head's Ḡ are diagonal)."""
     from repro_torch.configs.base import KFACConfig
-    n_factor_sides, n_blocks, n_full = 38, 20, 42
-    ns = n_refresh * n_full * KFACConfig().ns_iters
-    want = {name: 0 for name in K.WRAPPERS}
-    want.update(patch_factor=2 * steps, factor_update=n_factor_sides * steps,
-                precondition=n_blocks * steps, ns_step=ns,
-                matmul=2 * (n_blocks * steps + ns))
-    return want
+    return lm_launches(KFACConfig(lambda_init=10.0, t3=5),
+                       decoder_metas("whisper-small"), stop, start)
 
 
 def whisper_main(steps: int, ckpt: str) -> dict:
@@ -1406,7 +1431,7 @@ def whisper_main(steps: int, ckpt: str) -> dict:
     ckpt_s = ck.stats["save_host_ms"] / 1e3 + ck.stats["write_s"]
     wall = wall_ckpt - ckpt_s
     refresh = [i for i in range(steps) if i < 3 or i % 5 == 0]
-    want = whisper_launches(steps, len(refresh))
+    want = whisper_launches(steps)
     losses = [h["loss"] for h in res["history"]]
     plain = sorted(t for i, t in enumerate(ms) if i not in refresh)
     print(f"[main:whisper] full-width whisper-small "
@@ -2783,7 +2808,7 @@ def whisper_resume(d: str) -> dict:
     losses = [h["loss"] for h in res["history"]]
     refresh = [s for s in range(W_STEPS, W_CKPT_TO)
                if s - W_STEPS < 3 or s % 5 == 0]
-    want = whisper_launches(W_CKPT_TO - W_STEPS, len(refresh))
+    want = whisper_launches(W_CKPT_TO, W_STEPS)
     st = seen["ckpt"].stats
     print(f"[ckpt:whisper] relaunch --steps {W_CKPT_TO}: restore read "
           f"{st['restore_read_s']:.2f} s, to device "
@@ -3073,7 +3098,20 @@ def decoder_memory(arch: str, cfg=None) -> dict:
     stacks three times over; its update three candidate steps, the
     picked one and its scaled and applied copies (10P), the candidates',
     the picked and the current inverses (5F) beside the factors, and
-    H(4).  ``cfg``: the arch's config cut in depth."""
+    H(4).  Eigen mode (EKFAC) holds no inverses: bases as large as the
+    factors (B, no basis on a diagonal side) and ``s`` and ``damp``, each
+    as large as the tagged weights (2T).  Its refresh holds params, delta0
+    and grads, the factors, the eigen states and eigh's symmetrized copy,
+    new basis and the entry it replaces at the widest side (3P + F + B +
+    2T + 3L); its update the 7P, the factors and eigen states, H(2) and
+    at step 0 ``init``'s identity views.  The γ sweep's refresh adds the
+    candidates' bases, ``s`` and three ``damp`` (B + 4T); its update the
+    10P, H(4), the candidates and the picked state (B + 2T).  The fused
+    fixed-lr chain (``use_rescale=False``) updates without the quadratic
+    model: params, the trainer's old delta0, grads, the regularized
+    gradient, the velocity and the new params (6P) beside factors,
+    inverses and ``init``'s identities; at a sweep, the three candidates'
+    inverses as well.  ``cfg``: the arch's config cut in depth."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm import LM
     cfg = cfg or get_config(arch)
@@ -3088,21 +3126,57 @@ def decoder_memory(arch: str, cfg=None) -> dict:
               if kind != "diag") * gib
     ident = sum(d if kind == "diag" else (d // nb) ** 2
                 for _, d, kind, nb in sides) * gib
+    bases = sum(s_ * side_floats(d, kind, nb) for s_, d, kind, nb in sides
+                if kind != "diag") * gib
+    tagged = sum((m.n_stack or 1) * m.a_dim * m.g_dim
+                 for m in lm.metas.values()) * gib
     head = lambda m: m * cfg.vocab_size * (cfg.d_model + 4 * DEC_ROWS) * gib
+    eig = bases + 2 * tagged
     out = {"params_gib": p, "factors_gib": f, "largest_stack_gib": big,
            "identity_gib": ident, "quad_head_gib": head(2),
+           "bases_gib": bases, "s_damp_gib": 2 * tagged,
            "refresh_gib": 3 * p + 2 * f + 4 * big,
            "update_gib": 7 * p + 2 * f + head(2) + ident,
            "sweep_refresh_gib": 3 * p + 5 * f + 12 * big,
-           "sweep_update_gib": 10 * p + 6 * f + head(4)}
+           "sweep_update_gib": 10 * p + 6 * f + head(4),
+           "eigen_refresh_gib": 3 * p + f + eig + 3 * big,
+           "eigen_update_gib": 7 * p + f + eig + head(2) + ident,
+           "eigen_sweep_refresh_gib": (3 * p + f + eig + bases + 4 * tagged
+                                       + 3 * big),
+           "eigen_sweep_update_gib": (10 * p + f + eig + 2 * bases
+                                      + 6 * tagged + head(4)),
+           "chain_update_gib": 6 * p + 2 * f + ident,
+           "chain_sweep_update_gib": 6 * p + 5 * f}
     label = (arch if cfg.n_layers == get_config(arch).n_layers
              else f"{arch} at {cfg.n_layers} layers")
     print(f"[memory:{label}] reckoned: P {p:.2f}, F {f:.2f}, L {big:.2f}, "
           f"I {ident:.2f}, H(2) {head(2):.2f} GiB; refresh "
           f"{out['refresh_gib']:.1f}, update (step 0) {out['update_gib']:.1f}"
           f", γ sweep's refresh {out['sweep_refresh_gib']:.1f} and update "
-          f"{out['sweep_update_gib']:.1f} GiB")
+          f"{out['sweep_update_gib']:.1f} GiB; eigen: B {bases:.2f}, 2T "
+          f"{2 * tagged:.2f}, refresh {out['eigen_refresh_gib']:.1f}, "
+          f"update (step 0) {out['eigen_update_gib']:.1f}, γ sweep's "
+          f"refresh {out['eigen_sweep_refresh_gib']:.1f} and update "
+          f"{out['eigen_sweep_update_gib']:.1f} GiB; the fixed-lr chain's "
+          f"update {out['chain_update_gib']:.1f} (sweep "
+          f"{out['chain_sweep_update_gib']:.1f}) GiB")
     return out
+
+
+def reckoned_peak(reckoned: dict, kcfg, sweeps: bool) -> float:
+    """The largest of ``decoder_memory``'s stages that a run under
+    ``kcfg`` passes through (``sweeps``: it reaches a γ sweep)."""
+    if kcfg.inv_mode == "eigen":
+        keys = ("eigen_refresh_gib", "eigen_update_gib") + (
+            ("eigen_sweep_refresh_gib", "eigen_sweep_update_gib")
+            if sweeps else ())
+    elif not kcfg.use_rescale:
+        keys = ("refresh_gib", "chain_update_gib") + (
+            ("sweep_refresh_gib", "chain_sweep_update_gib") if sweeps else ())
+    else:
+        keys = ("refresh_gib", "update_gib") + (
+            ("sweep_refresh_gib", "sweep_update_gib") if sweeps else ())
+    return max(reckoned[k] for k in keys)
 
 
 def memory_table() -> dict:
@@ -3246,50 +3320,90 @@ def decoder_kernel_rows(dev, rows: dict) -> None:
               f"{r['bound'][0] / r['ms']:.1%}); plans {r['plans']}")
 
 
-def decoder_launches(arch: str, steps: int, cfg=None) -> dict:
-    """The launch counts of ``steps`` launcher steps of a full-width dense
-    decoder (``cfg``: cut in depth): ``kfac_launches`` over its stacked
-    dense layers (each one batched launch a side: 7 layers, 14
-    factor_update launches a statistics step, 7 applies a step and 21 on a
-    γ sweep), with ns_step on every full or block factor side (both sides
-    of each stacked layer and the tied embedding's Ḡ; its Ā is diagonal,
-    as is every side no kernel takes) ``ns_iters`` times a refresh and a
-    sweep.  A layer with a block side (gemma2's d_ff sides) applies
-    through two matmul launches, the block axis in their batch, and not
-    through precondition, whose two matmul launches they replace."""
-    from repro_torch.configs.base import KFACConfig
-    kc = KFACConfig(lambda_init=10.0, t3=5)
-    metas = decoder_metas(arch, cfg).values()
-    dense = [m for m in metas if m.kind == "dense"]
-    blocked = sum("block" in (m.a_kind, m.g_kind) for m in dense)
-    sides = sum((m.a_kind != "diag") + (m.g_kind != "diag") for m in metas)
-    sweeps = [s for s in range(steps) if s > 0 and s % kc.t2 == 0]
-    passes = [s for s in range(steps)
-              if s < 3 or s % kc.t3 == 0 or s in sweeps]
-    want = kfac_launches(kc, len(dense), steps,
-                         ns=len(passes) * sides * kc.ns_iters)
-    want["precondition"] -= blocked * (steps + 2 * len(sweeps))
+def lm_launches(kcfg, metas: dict, stop: int, start: int = 0) -> dict:
+    """The launch counts of steps ``start`` to ``stop`` of an LM's K-FAC
+    run under ``kcfg`` (serial refresh), from its layer metas.  A
+    statistics step launches factor_update on both sides of each
+    full/full or block layer (``DenseKronecker``, ``BlockDiagKronecker``;
+    a stacked layer's sides one batched launch each) and on the G side of
+    each 1-D conv stem, whose A side is one patch_factor; ``fused_stats``
+    launches the same, moved into the passes.  The diagonal-side blocks
+    (the embedding, whisper's head) launch nothing.  blkdiag refreshes at
+    the first three steps and every T3, and at the γ sweep every T2: ns_step
+    on every full or block factor side ``ns_iters`` times (the sweep's
+    candidates in the same launches); eigen mode refreshes by eigh (no
+    kernel).  An apply a step, three at a sweep with the exact-F
+    rescale (the chain applies candidate 0 only): a full/full layer
+    launches precondition (blkdiag), rotate_rescale (eigen, with or without
+    the chain) or precond_momentum (the blkdiag chain); a layer with a
+    block side launches matmul, two an apply (blkdiag, either way) or four
+    (eigen: each rotation a side).  Each ns_step and precondition is two
+    matmul launches, each rotate_rescale three and a matmul_rescale, each
+    precond_momentum one and an axpy_momentum.  tridiag on an LM is
+    blkdiag."""
+    from repro_torch import kernels as K
+    steps = range(start, stop)
+    sweeps = [s for s in steps if kcfg.t2 > 0 and s > 0 and s % kcfg.t2 == 0]
+    refresh = [s for s in steps if s not in sweeps
+               and (s - start < 3 or s % kcfg.t3 == 0)]
+    stats = len([s for s in steps if s % kcfg.stats_period == 0])
+    ms = list(metas.values())
+    kron = [m for m in ms if m.kind in ("dense", "conv")
+            and "diag" not in (m.a_kind, m.g_kind)]
+    blocked = [m for m in kron if "block" in (m.a_kind, m.g_kind)]
+    full = len(kron) - len(blocked)
+    convs = len([m for m in ms if m.kind == "conv"])
+    sides = sum((m.a_kind != "diag") + (m.g_kind != "diag") for m in ms)
+    eigen = kcfg.inv_mode == "eigen"
+    applies = len(steps) + (2 * len(sweeps) if kcfg.use_rescale else 0)
+    ns = 0 if eigen else (len(refresh) + len(sweeps)) * sides * kcfg.ns_iters
+    want = dict({name: 0 for name in K.WRAPPERS}, ns_step=ns,
+                factor_update=(2 * len(kron) - convs) * stats,
+                patch_factor=convs * stats)
+    if eigen:
+        want.update(rotate_rescale=full * applies,
+                    matmul_rescale=full * applies)
+        mm = 3 * full * applies + 4 * len(blocked) * applies
+    elif kcfg.use_rescale:
+        want.update(precondition=full * applies)
+        mm = 2 * full * applies + 2 * len(blocked) * applies
+    else:
+        want.update(precond_momentum=full * applies,
+                    axpy_momentum=full * applies)
+        mm = full * applies + 2 * len(blocked) * applies
+    want["matmul"] = mm + 2 * ns
     return want
 
 
 def decoder_main(arch: str, steps: int, falling: bool = True,
-                 cfg=None) -> dict:
-    """``Trainer.fit`` of a full-width dense decoder through
-    ``launch/train.py``'s ``main`` at the launcher's defaults (batch 8, seq
-    64, λ₀ 10, T3 5, blkdiag NS; weights from seed 0), the launch counters
-    zeroed just before and read just after: exact counts
-    (``decoder_launches``), every loss finite and every update applied (a
-    finite, nonzero step), with ``falling`` the last loss below the first;
-    plain-step, refresh-step and sweep-step ms of ``opt.update``, each
-    step's λ, α, μ and ρ, peak memory, and the memory allocated, reserved
-    and free on the device before the run.  ``cfg``: the arch's config cut
-    in depth, given to ``main``."""
+                 cfg=None, kfac_kw=None, label=None, keep=None,
+                 base_peak_gib=None) -> dict:
+    """``Trainer.fit`` of a full-width LM through ``launch/train.py``'s
+    ``main`` at the launcher's defaults (batch 8, seq 64, λ₀ 10, T3 5,
+    blkdiag NS; weights from seed 0), the launch counters zeroed just
+    before and read just after: exact counts (``lm_launches``), every
+    loss finite and every update applied (a finite, nonzero step), with
+    ``falling`` the last loss below the first; plain-step, refresh-step
+    and sweep-step ms of ``opt.update``, each step's λ, α, μ and ρ, peak
+    memory beside ``decoder_memory``'s reckoning of the path, and the
+    memory allocated, reserved and free on the device before the run.
+    ``cfg``: the arch's config cut in depth, given to ``main``;
+    ``kfac_kw``: ``KFACConfig`` fields (``inv_mode`` goes on the command
+    line as ``--inv_mode``, the others through ``main``'s ``kfac_kw``);
+    ``label``: the run's name in the output; ``keep``: a dict that gets
+    the run's result and optimizer; ``base_peak_gib``: a measured peak
+    that stands for the reckoning's non-K-FAC part (whisper's
+    activations), to which the eigen state's ``s`` and ``damp`` are
+    added."""
     from repro_torch import kernels as K
     from repro_torch.configs.base import KFACConfig
     from repro_torch.launch import train
 
     mcfg = cfg
-    cfg = KFACConfig(lambda_init=10.0, t3=5)
+    name = label or arch
+    kw = dict(kfac_kw or {})
+    mode = kw.pop("inv_mode", "blkdiag")
+    cfg = KFACConfig(lambda_init=10.0, t3=5, inv_mode=mode, **kw)
     reckoned = decoder_memory(arch, mcfg)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3297,40 +3411,47 @@ def decoder_main(arch: str, steps: int, falling: bool = True,
     resident = torch.cuda.memory_allocated()
     reserved = torch.cuda.memory_reserved()
     free, total = torch.cuda.mem_get_info()
-    print(f"[main:{arch}] before the run: allocated "
+    print(f"[main:{name}] before the run: allocated "
           f"{resident / 2 ** 20:.1f} MiB, reserved {reserved / 2 ** 20:.1f} "
           f"MiB, free {free / 2 ** 20:.1f} of {total / 2 ** 20:.1f} MiB")
     K.reset_launches()
-    ms = []
+    ms, held = [], {}
+
+    def wrap(opt):
+        held["opt"] = opt
+        return timed(opt, ms)
+
     t0 = time.perf_counter()
-    res = train.main(["--arch", arch, "--steps", str(steps)],
-                     log=lambda msg: print(f"  {msg}"),
-                     wrap_opt=lambda opt: timed(opt, ms), cfg=mcfg)
+    res = train.main(["--arch", arch, "--steps", str(steps), "--inv_mode",
+                      mode], log=lambda msg: print(f"  {msg}"),
+                     wrap_opt=wrap, cfg=mcfg, kfac_kw=kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.launches()
     peak = torch.cuda.max_memory_allocated()
-    want = decoder_launches(arch, steps, mcfg)
+    want = lm_launches(cfg, decoder_metas(arch, mcfg), steps)
     losses = [h["loss"] for h in res["history"]]
     sweeps = [i for i in range(steps) if i > 0 and i % cfg.t2 == 0]
     refresh = [i for i in range(steps)
                if i not in sweeps and (i < 3 or i % cfg.t3 == 0)]
     plain = sorted(t for i, t in enumerate(ms)
                    if i not in refresh and i not in sweeps)
-    reckoned_peak = max(reckoned[k] for k in (
-        "refresh_gib", "update_gib",
-        *(("sweep_refresh_gib", "sweep_update_gib") if sweeps else ())))
+    rpeak = reckoned_peak(reckoned, cfg, bool(sweeps))
+    if base_peak_gib is not None:
+        rpeak = base_peak_gib + (reckoned["s_damp_gib"]
+                                 if mode == "eigen" else 0.0)
     depth = "" if mcfg is None else f" at {mcfg.n_layers} layers"
-    print(f"[main:{arch}] full-width {arch}{depth}, batch 8, seq 64, {steps} "
-          f"steps in {wall:.1f} s")
+    print(f"[main:{name}] full-width {arch}{depth}, batch 8, seq 64, "
+          f"inv_mode {mode} {kw or ''}, {steps} steps in {wall:.1f} s")
     print(f"  per-step ms: {[round(t, 1) for t in ms]}")
     print(f"  plain-step median {plain[len(plain) // 2]:.1f} ms; refresh "
           f"steps {[round(ms[i], 1) for i in refresh]} ms (step 0 includes "
           f"the first calls' set-up); sweep steps "
           f"{[round(ms[i], 1) for i in sweeps]} ms; peak memory "
           f"{peak / 2 ** 20:.1f} MiB, of which {resident / 2 ** 20:.1f} MiB "
-          f"was allocated before ({peak / 2 ** 30:.2f} GiB against "
-          f"{reckoned_peak:.2f} reckoned)")
+          f"was allocated before (the run's {(peak - resident) / 2 ** 30:.2f}"
+          f" GiB against {rpeak:.2f} reckoned, "
+          f"{(peak - resident) / 2 ** 30 / rpeak - 1:+.1%})")
     print(f"  losses: {[round(v, 4) for v in losses]}")
     model = {k: [h.get(k) for h in res["history"]]
              for k in ("lam", "alpha", "mu", "rho", "delta_norm")}
@@ -3338,17 +3459,18 @@ def decoder_main(arch: str, steps: int, falling: bool = True,
         print(f"  {k}: {[None if v is None else float(f'{v:.4g}') for v in vs]}")
     print(f"  launches: {launches}")
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"{arch}: loss not finite: {losses}")
+        raise AssertionError(f"{name}: loss not finite: {losses}")
     if not all(math.isfinite(v) and v > 0 for v in model["delta_norm"]):
-        raise AssertionError(f"{arch}: an update not applied: "
+        raise AssertionError(f"{name}: an update not applied: "
                              f"{model['delta_norm']}")
     if falling and not losses[-1] < losses[0]:
-        raise AssertionError(f"{arch}: loss not falling: {losses}")
+        raise AssertionError(f"{name}: loss not falling: {losses}")
     if launches != want:
-        raise AssertionError(f"{arch}: launch counts {launches}, expected "
+        raise AssertionError(f"{name}: launch counts {launches}, expected "
                              f"{want}")
     out = {"steps": steps, "n_tokens": DEC_ROWS, "step_ms": ms,
-           "reckoned": reckoned, "reckoned_peak_gib": reckoned_peak,
+           "inv_mode": mode, "kfac_kw": kw,
+           "reckoned": reckoned, "reckoned_peak_gib": rpeak,
            **model,
            "plain_step_ms_median": plain[len(plain) // 2],
            "refresh_step_ms": {i: ms[i] for i in refresh},
@@ -3356,6 +3478,8 @@ def decoder_main(arch: str, steps: int, falling: bool = True,
            "peak_mem_bytes": peak, "resident_bytes_before": resident,
            "reserved_bytes_before": reserved, "free_bytes_before": free,
            "losses": losses, "launches": launches, "wall_s": wall}
+    if keep is not None:
+        keep.update(res=res, opt=held["opt"])
     del res
     torch.cuda.empty_cache()
     return out
@@ -3601,14 +3725,458 @@ def gemma2_phase(dev, rows: dict) -> dict:
     return out
 
 
+# ---- the "lm_eigen" phase: EKFAC, the fused chain, fused_stats, bundles ----
+
+LE_SMOLLM_STEPS = 25          # through the γ sweep at step 20
+LE_WHISPER_STEPS = 6          # the warmup refreshes, 2 plain, T3 at 5
+LE_G2_STEPS = 6               # gemma2's eigen run, cut before its sweep
+LE_MARGIN = 0.25              # the card's free memory an eigen cut leaves
+LE_SMOLLM_STACK = 30          # smollm-135m's stacked layers
+LE_WHISPER = ((12, 768, 3072), (12, 3072, 768))   # enc/dec MLP stacks
+LE_PATHS = {                  # the reduced runs, cuda vs cpu
+    "eigen": dict(inv_mode="eigen"),
+    "chain": dict(use_rescale=False, fixed_momentum=0.9, kl_clip=1e-3),
+    "fused_stats": dict(inv_mode="eigen", fused_stats=True)}
+# whisper-small's blkdiag peak as the script's whisper phase measured it
+# (NVIDIA H100 80GB HBM3, 700 W), for the phase run alone: the whole
+# script measures its own
+W_BLKDIAG_PEAK_MIB = 48178.0
+
+
+def gemma2_eigen_layers(free_gib: float) -> int:
+    """The deepest even cut of gemma2-2b whose eigen reckoning at step 0's
+    update (``decoder_memory``) leaves ``LE_MARGIN`` of ``free_gib``."""
+    from repro_torch.configs import get_config
+    full = get_config("gemma2-2b")
+    best = 0
+    for n in range(2, full.n_layers + 1, 2):
+        r = decoder_memory("gemma2-2b", full.replace(n_layers=n))
+        if r["eigen_update_gib"] <= (1 - LE_MARGIN) * free_gib:
+            best = n
+    if not best:
+        raise AssertionError(f"gemma2-2b: no eigen cut fits {free_gib:.1f}"
+                             " GiB")
+    return best
+
+
+def _orthonormal(g, dev, *shape):
+    """Orthonormal (d, d) bases over leading dims, as eigh returns."""
+    return torch.linalg.qr(torch.randn(*shape, generator=g, device=dev))[0]
+
+
+def lm_eigen_kernel_rows(dev, rows: dict, g2_layers: int) -> None:
+    """The new shapes of this phase's kernels, each against its plain
+    version (normwise 1e-4, ΣD² to relative 1e-4; the errors fold into
+    each row's ``max_abs_err``), timed beside the library calls, as cases
+    of their rows:
+
+    * 6a, ``rotate_rescale`` batched: smollm-135m's 7 stacked layers (S =
+      30), one call each; whisper-small's (12, 768, 3072) and (12, 3072,
+      768) MLP stacks.  Library: bmm, div, bmm, bmm, bmm in the kernel's
+      order.  Bound: 4·S·a·g·(a + g) operations; bytes: Q_A, Q_G, V, S
+      read, U written, the two transposed copies written and read;
+    * 6b, the block eigen apply of gemma2-2b's gate, up and down at the
+      eigen run's depth (``BlockDiagKronecker.precondition_eigen``: four
+      matmul launches, a block side's blocks in their batch), against
+      ``core/inverse.py::apply_eigen``; library: bmm / batched matmul;
+    * 5a, the batched chain ``precond_momentum`` and its
+      ``axpy_momentum`` at smollm-135m's 7 stacked layers; library: bmm
+      (T = V Ḡ⁻¹), baddbmm (α·Ā⁻¹T + μM), sum(d*d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import KFACConfig
+    from repro_torch.core import inverse as INV
+    from repro_torch.core.blocks import resolve
+    from repro_torch.kernels.rotate_rescale import (rotate_rescale,
+                                                    rotate_rescale_ref)
+    from repro_torch.kernels.update_chain import (axpy_momentum,
+                                                  axpy_momentum_ref,
+                                                  precond_momentum,
+                                                  precond_momentum_ref)
+    g = torch.Generator(device=dev).manual_seed(33)
+    lam = torch.tensor(1e-12, device=dev)
+    smollm = [(m.a_dim, m.g_dim) for m in decoder_metas(
+        "smollm-135m").values() if m.kind == "dense"]
+    S = LE_SMOLLM_STACK
+
+    def rr_ops(shapes):
+        return [(_orthonormal(g, dev, s_, a, a),
+                 torch.randn(s_, a, gd, generator=g, device=dev),
+                 _orthonormal(g, dev, s_, gd, gd),
+                 torch.rand(s_, a, gd, generator=g, device=dev) + 0.05)
+                for s_, a, gd in shapes]
+
+    def rr_library(qa, v, qg, sd):
+        t = torch.bmm(torch.bmm(qa.transpose(1, 2), v), qg).div_(sd)
+        return torch.bmm(torch.bmm(qa, t), qg.transpose(1, 2))
+
+    rr = rows["rotate_rescale"]
+    rr.setdefault("cases", {})
+    errs = []
+    for case, shapes in (("smollm-135m", [(S, a, gd) for a, gd in smollm]),
+                         ("whisper-small", list(LE_WHISPER))):
+        ops = rr_ops(shapes)
+        for (s_, a, gd), o in zip(shapes, ops):
+            compare(f"rotate_rescale {case} ({s_},{a},{gd})",
+                    rotate_rescale(*o, lam), rotate_rescale_ref(*o, lam),
+                    errs)
+        rr["cases"][case] = dict(
+            unit=f"{case}'s stacked layers, one batched call each: "
+                 + ", ".join(f"({s_}, {a}, {gd})" for s_, a, gd in shapes),
+            plans=[mm_plan(s_, a, gd, k_) for s_, a, gd in shapes
+                   for k_ in (a, a, gd)],
+            **timings(lambda: [rotate_rescale(*o, lam) for o in ops],
+                      lambda: [rotate_rescale_ref(*o, lam) for o in ops],
+                      lambda: [rr_library(*o) for o in ops], reps=5),
+            library_calls="bmm, bmm, div, bmm, bmm",
+            bound=bound_ms(sum(4.0 * s_ * a * gd * (a + gd) + s_ * a * gd
+                               for s_, a, gd in shapes),
+                           4.0 * sum(s_ * (3 * a * a + 3 * gd * gd
+                                           + 3 * a * gd)
+                                     for s_, a, gd in shapes)))
+        del ops
+    rr["max_abs_err"] = max(rr["max_abs_err"], *errs)
+
+    # 6b: the block eigen apply at the eigen run's depth
+    cut = get_config("gemma2-2b").replace(n_layers=g2_layers)
+    metas = [m for n, m in decoder_metas("gemma2-2b", cut).items()
+             if ".mlp." in n]
+    kcfg = KFACConfig(inv_mode="eigen")
+    errs, ops, plans = [], [], []
+    flops = nbytes = 0.0
+
+    def basis(s_, d, kind, nb_):
+        return (_orthonormal(g, dev, s_, nb_, d // nb_, d // nb_)
+                if kind == "block" else _orthonormal(g, dev, s_, d, d))
+
+    def library(meta, eig, v):
+        """The eigen apply in bmm / batched matmul calls, a block side's
+        blocks as the batch of a view."""
+        def left(q, t):
+            if meta.a_kind == "block":
+                return torch.matmul(q, t.reshape(t.shape[0], meta.a_blocks,
+                                                 -1, t.shape[-1])
+                                    ).reshape(t.shape)
+            return torch.bmm(q, t)
+
+        def right(t, q):
+            if meta.g_kind == "block":
+                k = meta.g_blocks
+                s_, a, gd = t.shape
+                return torch.matmul(t.view(s_, a, k, gd // k).transpose(1, 2),
+                                    q).transpose(1, 2).reshape(t.shape)
+            return torch.bmm(t, q)
+
+        qa, qg = eig["qa"], eig["qg"]
+        t = right(left(qa.transpose(-1, -2), v), qg).div_(
+            eig["s"] + eig["damp"])
+        return right(left(qa, t), qg.transpose(-1, -2))
+
+    for meta in metas:
+        s_ = meta.n_stack
+        blk = resolve(meta)(meta, kcfg, dev)
+        eig = {"qa": basis(s_, meta.a_dim, meta.a_kind, meta.a_blocks),
+               "qg": basis(s_, meta.g_dim, meta.g_kind, meta.g_blocks),
+               "s": torch.rand(s_, meta.a_dim, meta.g_dim, generator=g,
+                               device=dev),
+               "damp": torch.full((s_, meta.a_dim, meta.g_dim), 0.05,
+                                  device=dev)}
+        v = torch.randn(s_, meta.a_dim, meta.g_dim, generator=g, device=dev)
+        compare(f"block eigen apply gemma2 {meta.name} "
+                f"({meta.a_kind}/{meta.g_kind})", blk.precondition_eigen(
+                    eig, v), INV.apply_eigen(meta, eig, v), errs)
+        ops.append((meta, blk, eig, v))
+        a, gd = meta.a_dim, meta.g_dim
+        da, dg = a // meta.a_blocks, gd // meta.g_blocks
+        plans += [mm_plan(s_ * meta.a_blocks, da, gd, da),
+                  mm_plan(s_ * meta.g_blocks, a, dg, dg)] * 2
+        flops += 4.0 * s_ * a * gd * (da + dg) + s_ * a * gd
+        nbytes += 4.0 * s_ * (3 * a * da + 3 * gd * dg + 3 * a * gd)
+    rr["cases"]["gemma2-2b blocks"] = dict(
+        unit=f"the MLP's stacked layers of the {g2_layers}-layer gemma2-2b "
+             "eigen run, Q_A[(Q_Aᵀ V Q_G)/(s + damp)]Q_Gᵀ through "
+             "BlockDiagKronecker (four matmul launches, a block side's "
+             "blocks in their batch): "
+             + ", ".join(f"{m.name} ({m.n_stack}, {m.a_dim}, {m.g_dim}) "
+                         f"{m.a_kind}/{m.g_kind}" for m, *_ in ops),
+        plans=plans,
+        **timings(lambda: [b.precondition_eigen(e, v) for _, b, e, v in ops],
+                  lambda: [INV.apply_eigen(m, e, v) for m, _, e, v in ops],
+                  lambda: [library(m, e, v) for m, _, e, v in ops], reps=3),
+        library_calls="bmm / batched matmul, div",
+        bound=bound_ms(flops, nbytes))
+    rr["max_abs_err"] = max(rr["max_abs_err"], *errs)
+    rows["matmul"]["max_abs_err"] = max(rows["matmul"]["max_abs_err"],
+                                        *errs)
+    del ops
+    torch.cuda.empty_cache()
+
+    # 5a: the batched chain at smollm-135m's stacked layers
+    def spd(s_, d):
+        f = torch.randn(s_, d, 512, generator=g, device=dev)
+        return torch.bmm(f, f.transpose(1, 2)) / 512 + 0.1 * torch.eye(
+            d, device=dev)
+
+    al, mu = torch.tensor(-0.05, device=dev), torch.tensor(0.9, device=dev)
+    cops = [(spd(S, a), torch.randn(S, a, gd, generator=g, device=dev),
+             spd(S, gd), torch.randn(S, a, gd, generator=g, device=dev))
+            for a, gd in smollm]
+    errs, errs_ax = [], []
+
+    def rel_sq(name, got, want):
+        rel = abs(got.item() - want.item()) / want.item()
+        print(f"  {name:48s} rel|err| {rel:.3e}  "
+              f"{'ok' if rel <= TOL else 'FAIL'}")
+        if not rel <= TOL:
+            raise AssertionError(f"{name}: ΣD² {got.item()} vs {want.item()}")
+
+    for (a, gd), (ai, v, gi, mom) in zip(smollm, cops):
+        d, sq = precond_momentum(ai, v, gi, mom, alpha=al, mu=mu)
+        d_ref, sq_ref = precond_momentum_ref(ai, v, gi, mom, alpha=al, mu=mu)
+        compare(f"precond_momentum smollm ({S},{a},{gd})", d, d_ref, errs)
+        rel_sq(f"precond_momentum smollm ({S},{a},{gd}) ΣD²", sq, sq_ref)
+        t = torch.bmm(v, gi)
+        d, sq = axpy_momentum(ai, t, mom, al, mu)
+        d_ref, sq_ref = axpy_momentum_ref(ai, t, mom, al, mu)
+        compare(f"axpy_momentum smollm ({S},{a},{gd})", d, d_ref, errs_ax)
+        rel_sq(f"axpy_momentum smollm ({S},{a},{gd}) ΣD²", sq, sq_ref)
+    aops = [(ai, torch.bmm(v, gi), mom) for ai, v, gi, mom in cops]
+
+    def pm_library():
+        for ai, v, gi, mom in cops:
+            d = torch.baddbmm(mom, ai, torch.bmm(v, gi), beta=0.9,
+                              alpha=-0.05)
+            torch.sum(d * d)
+
+    def ax_library():
+        for ai, t, mom in aops:
+            d = torch.baddbmm(mom, ai, t, beta=0.9, alpha=-0.05)
+            torch.sum(d * d)
+
+    unit = ("smollm-135m's 7 stacked layers, one batched call each: "
+            + ", ".join(f"({S}, {a}, {gd})" for a, gd in smollm))
+    pm = rows["precond_momentum"]
+    pm.setdefault("cases", {})["smollm-135m"] = dict(
+        unit=unit, plans=[p for a, gd in smollm for p in (
+            mm_plan(S, a, gd, gd), f"axpy batch {S} " + ax_plan(a, gd, a))],
+        **timings(lambda: [precond_momentum(ai, v, gi, mom, alpha=al, mu=mu)
+                           for ai, v, gi, mom in cops],
+                  lambda: [precond_momentum_ref(ai, v, gi, mom, alpha=al,
+                                                mu=mu)
+                           for ai, v, gi, mom in cops], pm_library, reps=5),
+        library_calls="bmm, baddbmm, sum(d*d)",
+        bound=bound_ms(sum(2.0 * S * a * gd * (a + gd) + 4.0 * S * a * gd
+                           for a, gd in smollm),
+                       4.0 * S * sum(a * a + gd * gd + 3 * a * gd
+                                     for a, gd in smollm)))
+    pm["max_abs_err"] = max(pm["max_abs_err"], *errs)
+    ax = rows["axpy_momentum"]
+    ax.setdefault("cases", {})["smollm-135m"] = dict(
+        unit=unit + " (the second half)",
+        plans=[f"batch {S} " + ax_plan(a, gd, a) for a, gd in smollm],
+        **timings(lambda: [axpy_momentum(ai, t, mom, al, mu)
+                           for ai, t, mom in aops],
+                  lambda: [axpy_momentum_ref(ai, t, mom, al, mu)
+                           for ai, t, mom in aops], ax_library, reps=5),
+        library_calls="baddbmm, sum(d*d)",
+        bound=bound_ms(sum(2.0 * S * a * a * gd + 4.0 * S * a * gd
+                           for a, gd in smollm),
+                       4.0 * S * sum(a * a + 3 * a * gd
+                                     for a, gd in smollm)))
+    ax["max_abs_err"] = max(ax["max_abs_err"], *errs_ax)
+    del cops, aops
+    torch.cuda.empty_cache()
+    for label, r in [("rotate_rescale smollm-135m",
+                      rr["cases"]["smollm-135m"]),
+                     ("rotate_rescale whisper-small",
+                      rr["cases"]["whisper-small"]),
+                     ("block eigen apply gemma2-2b",
+                      rr["cases"]["gemma2-2b blocks"]),
+                     ("precond_momentum smollm-135m",
+                      pm["cases"]["smollm-135m"]),
+                     ("axpy_momentum smollm-135m",
+                      ax["cases"]["smollm-135m"])]:
+        print(f"  {label}: kernel {r['ms']:.4f} [{r['eager_ms']['ms']:.4f}] "
+              f"ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}; {r['bound'][0] / r['ms']:.1%})")
+
+
+def lm_bundle_checks(label: str, keep: dict, eigh_inverse: bool) -> dict:
+    """``snapshot_bundle`` of a full-width run's last state, written by
+    ``BundleWriter`` into a temporary directory and read back with
+    ``load_bundle``: every array bit for bit, and the apply of the loaded
+    bundle (each block rebuilt from the bundle's meta, its kernel route)
+    to a fixed V held against the live engine: its own eigen apply within
+    1e-5 (an eigen run), or (``eigh_inverse``: a blkdiag run, whose bundle
+    is a fresh eigh of its factors) its apply of the eigh-damped inverses
+    of the same factors and γ within min(5e-6·κ, 2e-3)."""
+    import shutil
+    import tempfile
+    from repro_torch.core.blocks import resolve
+    from repro_torch.curvature import BundleWriter, load_bundle
+    from repro_torch.curvature import snapshot_bundle
+    engine, state = keep["opt"].engine, keep["res"]["state"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = snapshot_bundle(engine, state)
+    torch.cuda.synchronize()
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    os.makedirs(ROOT / "build", exist_ok=True)
+    d = tempfile.mkdtemp(prefix="bundle_", dir=ROOT / "build")
+    try:
+        writer = BundleWriter()
+        writer.write_async(os.path.join(d, "b"), bundle)
+        writer.wait()
+        t0 = time.perf_counter()
+        back = load_bundle(os.path.join(d, "b"), device="cuda")
+        read_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(d, "b", "arrays.npz"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    n_arrays = 0
+    for name, e in bundle.eigen.items():
+        for k, v in e.items():
+            if (v is None) != (back.eigen[name][k] is None) or (
+                    v is not None and not torch.equal(back.eigen[name][k],
+                                                      v)):
+                raise AssertionError(f"{label}: bundle {name} {k} not read "
+                                     "back bit for bit")
+            n_arrays += v is not None
+    g = torch.Generator(device="cuda").manual_seed(12)
+    errs = {}
+    for name, blk in engine.blocks.items():
+        m = back.metas[name]
+        lead = (m.n_stack,) if m.n_stack else ()
+        v = torch.randn(*lead, m.a_dim, m.g_dim, generator=g, device="cuda")
+        got = resolve(m)(m, engine.cfg, "cuda").precondition_eigen(
+            back.eigen[name], v)
+        sd = back.eigen[name]["s"] + back.eigen[name]["damp"]
+        kappa = (sd.max() / sd.min()).item()
+        if eigh_inverse:
+            want = blk.precondition(blk.damped_inverse(
+                state.factors[name], state.gamma, method="eigh"), v)
+            tol = min(5e-6 * kappa, 2e-3)
+        else:
+            want = blk.precondition_eigen(state.inv[name], v)
+            tol = 1e-5
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        errs[name] = {"max_abs_err": err, "scale": scale, "kappa": kappa,
+                      "tol": tol}
+    bad = {n: e for n, e in errs.items()
+           if not (math.isfinite(e["max_abs_err"])
+                   and e["max_abs_err"] <= e["tol"] * e["scale"])}
+    for n, e in bad.items():
+        print(f"  {label} bundle apply {n}: max|err| {e['max_abs_err']:.3e}"
+              f", scale {e['scale']:.3e}, kappa {e['kappa']:.3e}, tol "
+              f"{e['tol']:.1e} FAIL")
+    if bad:
+        raise AssertionError(f"{label}: bundle apply disagrees on "
+                             f"{sorted(bad)}")
+    worst = max(errs.values(), key=lambda e: e["max_abs_err"] / e["scale"])
+    print(f"[lm_eigen:{label}] bundle: {len(bundle.eigen)} blocks, "
+          f"{n_arrays} arrays, {nbytes:,} bytes; snapshot {snapshot_ms:.1f} "
+          f"ms, write {writer.write_s:.2f} s, read {read_s:.2f} s; read back "
+          f"bit for bit; apply vs "
+          f"{'the eigh inverses' if eigh_inverse else 'the live state'}: "
+          f"worst relative {worst['max_abs_err'] / worst['scale']:.3e} "
+          f"(tol {worst['tol']:.1e}, kappa {worst['kappa']:.3e})")
+    return {"snapshot_ms": snapshot_ms, "write_s": writer.write_s,
+            "read_s": read_s, "bytes": nbytes, "arrays": n_arrays,
+            "apply": errs}
+
+
+def lm_eigen_phase(dev, rows: dict, whisper_peak_bytes=None) -> dict:
+    """The "lm_eigen" phase: eigen mode, the fused fixed-lr chain,
+    ``fused_stats`` and the curvature bundle on the LMs.  The kernels at
+    the new shapes (``lm_eigen_kernel_rows``); reduced smollm-135m,
+    gemma2-2b at ``max_factor_dim`` 64 and whisper-small 4 steps on the
+    card and on the CPU on each of ``LE_PATHS``; full width, through
+    ``launch/train.py`` with exact launches and the peak beside the
+    path's reckoning: smollm-135m in eigen mode 25 steps (the γ sweep at
+    20) and on the fused chain 25 steps, whisper-small in eigen mode with
+    ``fused_stats`` 6 steps (its reckoning: ``whisper_peak_bytes``, the
+    peak of the script's blkdiag whisper run, or ``W_BLKDIAG_PEAK_MIB``,
+    plus s and damp: the activations no formula here counts), gemma2-2b
+    in eigen mode at ``gemma2_eigen_layers`` 6 steps (cut before its
+    sweep); then the bundles of whisper's live eigen state and of the
+    smollm chain's blkdiag state.  Alone: ``python3 -c 'import chip_smoke
+    as c, torch; c.lm_eigen_phase(torch.device("cuda"),
+    c.kernel_rows_stub())'``."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+    g2_layers = gemma2_eigen_layers(free_gib)
+    print(f"[lm_eigen] gemma2-2b eigen cut: {g2_layers} layers (the deepest "
+          f"whose eigen reckoning leaves {LE_MARGIN:.0%} of {free_gib:.1f} "
+          "GiB free)")
+    lm_eigen_kernel_rows(dev, rows, g2_layers)
+    out = {"agree": {f"{arch} {mfd} {path}": agree_lm(arch, mfd=mfd, **kw)
+                     for arch, mfd in (("smollm-135m", 8192),
+                                       ("gemma2-2b", 64),
+                                       ("whisper-small", 8192))
+                     for path, kw in LE_PATHS.items()},
+           "gemma2_layers": g2_layers}
+    smollm_chain = {}
+    out["smollm-135m_eigen"] = decoder_main(
+        "smollm-135m", LE_SMOLLM_STEPS, kfac_kw=LE_PATHS["eigen"],
+        label="smollm-135m eigen")
+    out["smollm-135m_chain"] = decoder_main(
+        "smollm-135m", LE_SMOLLM_STEPS, falling=False,
+        kfac_kw=dict(use_rescale=False), label="smollm-135m chain",
+        keep=smollm_chain)
+    out["bundle_smollm-135m_blkdiag"] = lm_bundle_checks(
+        "smollm-135m chain", smollm_chain, eigh_inverse=True)
+    smollm_chain.clear()
+    torch.cuda.empty_cache()
+    whisper = {}
+    # whisper's peak is mostly its activations' (no remat), which
+    # decoder_memory does not count: its reckoning starts from the blkdiag
+    # run's whole peak
+    base = (whisper_peak_bytes / 2 ** 30 if whisper_peak_bytes
+            else W_BLKDIAG_PEAK_MIB / 1024)
+    print(f"[lm_eigen] whisper-small's eigen reckoning: the blkdiag run's "
+          f"peak {base:.2f} GiB "
+          f"({'this run' if whisper_peak_bytes else 'W_BLKDIAG_PEAK_MIB'}) "
+          "plus s and damp")
+    out["whisper-small_eigen_fs"] = decoder_main(
+        "whisper-small", LE_WHISPER_STEPS, kfac_kw=LE_PATHS["fused_stats"],
+        label="whisper-small eigen fused_stats", keep=whisper,
+        base_peak_gib=base)
+    out["bundle_whisper-small_eigen"] = lm_bundle_checks(
+        "whisper-small eigen", whisper, eigh_inverse=False)
+    whisper.clear()
+    torch.cuda.empty_cache()
+    # the loss is held finite, not falling, as in the "gemma2" phase
+    out["gemma2-2b_eigen"] = decoder_main(
+        "gemma2-2b", LE_G2_STEPS, falling=False,
+        cfg=get_config("gemma2-2b").replace(n_layers=g2_layers),
+        kfac_kw=LE_PATHS["eigen"], label=f"gemma2-2b@{g2_layers} eigen")
+    for label in ("smollm-135m_eigen", "smollm-135m_chain",
+                  "whisper-small_eigen_fs", "gemma2-2b_eigen"):
+        r = out[label]
+        run = r["peak_mem_bytes"] - r["resident_bytes_before"]
+        r["peak_vs_reckoned"] = run / 2 ** 30 / r["reckoned_peak_gib"] - 1
+        if abs(r["peak_vs_reckoned"]) > 0.10:
+            raise AssertionError(f"{label}: the run's peak {run:,} B is "
+                                 f"{r['peak_vs_reckoned']:+.1%} off its "
+                                 f"reckoning {r['reckoned_peak_gib']:.2f} GiB")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[lm_eigen] phase done in {out['phase_s']:.1f} s")
+    return out
+
+
 def kernel_rows_stub() -> dict:
-    """The fields of phase 3's rows that ``decoder_kernel_rows`` and
-    ``gemma2_kernel_rows`` add to, for running the "decoders" or the
-    "gemma2" phase alone."""
+    """The fields of phase 3's rows that ``decoder_kernel_rows``,
+    ``gemma2_kernel_rows`` and ``lm_eigen_kernel_rows`` add to, for
+    running the "decoders", "gemma2" or "lm_eigen" phase alone."""
     return {"factor_update": {"cases": {}, "max_abs_err": 0.0},
             "ns_step": {"cases": {}, "max_abs_err": 0.0},
             "precondition": {"max_abs_err": 0.0},
-            "matmul": {"max_abs_err": 0.0}}
+            "matmul": {"max_abs_err": 0.0},
+            "rotate_rescale": {"max_abs_err": 0.0},
+            "precond_momentum": {"max_abs_err": 0.0},
+            "axpy_momentum": {"max_abs_err": 0.0}}
 
 
 def main() -> None:
@@ -4236,6 +4804,15 @@ def main() -> None:
     print(f"[time] gemma2 phase done at "
           f"{time.perf_counter() - t_start:.1f} s ({g2_out['phase_s']:.1f}"
           f" s)")
+    # ---- lm_eigen: EKFAC, the fused chain, fused_stats and bundles -----
+    le_out = lm_eigen_phase(
+        dev, rows, whisper_peak_bytes=main_out["whisper"]["peak_mem_bytes"])
+    for label in ("smollm-135m_eigen", "smollm-135m_chain",
+                  "whisper-small_eigen_fs", "gemma2-2b_eigen"):
+        launches_by_path[f"le_{label}"] = le_out[label]["launches"]
+    print(f"[time] lm_eigen phase done at "
+          f"{time.perf_counter() - t_start:.1f} s ({le_out['phase_s']:.1f}"
+          f" s)")
     # ---- 7. where the time goes --------------------------------------
     for label, cfg in paths.items():
         profiles[label] = profile_path(label, mlp, params, data, cfg, steps)
@@ -4279,6 +4856,7 @@ def main() -> None:
     print(json.dumps({"conv": conv_out}))
     print(json.dumps({"decoders": dec_out}))
     print(json.dumps({"gemma2": g2_out}))
+    print(json.dumps({"lm_eigen": le_out}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

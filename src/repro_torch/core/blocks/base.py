@@ -103,12 +103,23 @@ class CurvatureBlock:
 
     def eigen_identity(self):
         """Pre-refresh placeholder with the post-refresh structure: identity
-        bases and a unit diagonal (an identity preconditioner)."""
+        bases shaped like the factors (None on a diagonal side) and a unit
+        diagonal ``s`` with a zero ``damp``, (*lead, a_dim, g_dim): an
+        identity preconditioner.  Every tensor is a view of one identity
+        or one scalar, as :meth:`identity_inverse`'s are; the first refresh
+        or rescale writes new tensors."""
         m = self.meta
-        eye = lambda d: torch.eye(d, device=self.device)
-        return {"qa": eye(m.a_dim), "qg": eye(m.g_dim),
-                "s": torch.ones(m.a_dim, m.g_dim, device=self.device),
-                "damp": torch.zeros(m.a_dim, m.g_dim, device=self.device)}
+        lead = (m.n_stack,) if m.n_stack else ()
+        ident = self.identity_inverse()
+
+        def basis(key, kind):
+            return None if kind == "diag" else ident[key]
+
+        diag_shape = (*lead, m.a_dim, m.g_dim)
+        one = lambda v: torch.full((), v, device=self.device).expand(
+            diag_shape)
+        return {"qa": basis("a_inv", m.a_kind), "qg": basis("g_inv", m.g_kind),
+                "s": one(1.0), "damp": one(0.0)}
 
     def eigen_state_multi(self, fac, gammas):
         """Candidate-stacked eigen states (gamma sweep) from one eigh."""
@@ -116,11 +127,11 @@ class CurvatureBlock:
 
     def rescale_step(self, eig, grad, eps):
         """Per-step second-moment update ``s ← εs + (1−ε)(Q_Aᵀ ∇ Q_G)²``."""
-        return INV.eigen_rescale(eig, grad, eps)
+        return INV.eigen_rescale(self.meta, eig, grad, eps)
 
     def precondition_eigen(self, eig, v):
         """``U = Q_A [ (Q_Aᵀ V Q_G) / (s + damp) ] Q_Gᵀ``; v shaped like W."""
-        return INV.apply_eigen(eig, v)
+        return INV.apply_eigen(self.meta, eig, v)
 
 
 _REGISTRY: Dict[str, List[Type[CurvatureBlock]]] = {}

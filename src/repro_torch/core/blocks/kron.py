@@ -16,11 +16,15 @@ Mirrors the ``full`` and ``diag`` layouts of ``repro/core/blocks/kron.py``:
         class's blend of the shared ``stats_contrib``;
       - the two-sided apply through ``kernels.precond.precondition``
         (stacked: the matmul kernel's batch dim);
-      - the EKFAC eigenbasis apply through ``kernels.rotate_rescale``;
+      - the EKFAC eigenbasis apply through ``kernels.rotate_rescale``
+        (stacked: its kernels' batch dim, where the reference vmaps);
       - the fixed-lr update chain ``α·Ā⁻¹VḠ⁻¹ + μ·M`` with its ``ΣD²``
-        through ``kernels.update_chain.precond_momentum`` (blkdiag inverses
-        only: the eigen apply composed with momentum takes the base class's
-        plain composition, as in the reference).
+        through ``kernels.update_chain.precond_momentum`` (stacked: its
+        kernels' batch dim, where the reference sends a stacked layer to
+        the base class's plain composition; blkdiag inverses only: the
+        eigen apply composed with momentum takes the base class's
+        composition over the kernel-routed eigen apply, as in the
+        reference).
   * :class:`BlockDiagKronecker` — a ``block`` side on at least one side
     and no ``diag`` one: a side above ``KFACConfig.max_factor_dim``
     (gemma2's d_ff of 9216) keeps nb diagonal (db, db) blocks,
@@ -35,9 +39,16 @@ Mirrors the ``full`` and ``diag`` layouts of ``repro/core/blocks/kron.py``:
         one ``kernels.matmul`` launch a side: on a block Ā side V
         (S, nb·db, g) is already (S·nb, db, g) as a view; on a block Ḡ
         side the product is copied block-major, (S·nb, a, db), and back;
-        a full side is one batched matmul.
-    Eigen mode, the fused fixed-lr chain and ``fused_stats`` on a block
-    side are not ported yet and raise when the block is built.
+        a full side is one batched matmul;
+      - the EKFAC apply ``Q_A [(Q_Aᵀ V Q_G) / (s + damp)] Q_Gᵀ`` as four
+        such launches, a side's basis (transposed: a copy) in place of its
+        inverse, and the division one elementwise op between the two
+        rotations (the reference's ``apply_eigen``);
+      - the fused fixed-lr chain as the base class's composition over
+        these applies.
+    ``fused_stats`` leaves it two-pass: only unstacked layers are eligible
+    (``core/fused.py::fused_eligible``), and a block side is always
+    stacked.
   * :class:`DiagFactor` — a diagonal factor on at least one side
     (vocab-scale dims); the reference sends it to no kernel, and neither
     does the port.
@@ -200,18 +211,6 @@ class BlockDiagKronecker(KroneckerPair):
         kinds = (meta.a_kind, meta.g_kind)
         return "block" in kinds and "diag" not in kinds
 
-    def __init__(self, meta, cfg, device):
-        super().__init__(meta, cfg, device)
-        refused = [what for what, on in (
-            ("eigen mode", getattr(cfg, "inv_mode", "") == "eigen"),
-            ("the fused fixed-lr chain",
-             not getattr(cfg, "use_rescale", True)),
-            ("fused_stats", getattr(cfg, "fused_stats", False))) if on]
-        if refused:
-            raise NotImplementedError(
-                f"{meta.name}: {' and '.join(refused)} on a block side "
-                "(BlockDiagKronecker) is not ported yet")
-
     def update_factors(self, old, rec, gprobe, n, eps):
         m = self.meta
         stacked = m.n_stack > 0
@@ -225,3 +224,13 @@ class BlockDiagKronecker(KroneckerPair):
         m = self.meta
         u = _apply_left(inv["a_inv"], m.a_kind, v.float().contiguous())
         return _apply_right(inv["g_inv"], m.g_kind, u)
+
+    def precondition_eigen(self, eig, v):
+        m = self.meta
+        qa, qg = eig["qa"], eig["qg"]
+        t = _apply_left(qa.transpose(-1, -2), m.a_kind,
+                        v.float().contiguous())
+        t = _apply_right(qg, m.g_kind, t)
+        t = t / (eig["s"] + eig["damp"] + 1e-12)
+        t = _apply_left(qa, m.a_kind, t)
+        return _apply_right(qg.transpose(-1, -2), m.g_kind, t)

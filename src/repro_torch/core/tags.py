@@ -41,8 +41,9 @@ class LayerMeta:
     g_blocks: int = 1               # (core/factors.py::factor_layout)
     has_bias: bool = False          # homogeneous coordinate appended to ā
     probe_tshard: bool = False      # the reference's context-parallel probe
-                                    # flag: never set by the port, carried
-                                    # by a bundle's manifest
+                                    # flag, set on the LM's self-attention
+                                    # q/k/v as there; read by no code of
+                                    # the port, carried by a bundle
     # convolution layers (kind == "conv", KFC — 1602.01407): the weight is a
     # (prod(conv_spatial)*conv_in [+1], d_out) matrix over tap-major patch
     # features [k, c]; d_in is the flattened patch width

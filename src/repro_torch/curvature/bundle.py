@@ -106,18 +106,13 @@ def snapshot_bundle(engine, state) -> Optional[CurvatureBundle]:
     In ``inv_mode="eigen"`` the live EKFAC state is referenced as it is;
     the other modes compute a fresh eigen state from the running factors
     (one eigh per factor), right after which ``apply_eigen`` equals the
-    damped eigh inverse.  Returns None for optimizers without curvature
-    blocks (the first-order baselines).  An LM engine raises: its stacked
-    blocks and diagonal factor sides need eigen states the port computes
-    only with eigen mode on an LM, which is not ported."""
+    damped eigh inverse: stacked (a leading layer dim), ``block`` (bases
+    (S, nb, db, db)) and ``diag`` (no basis: None) sides alike, in the
+    reference's layout.  Returns None for optimizers without curvature
+    blocks (the first-order baselines)."""
     blocks = getattr(engine, "blocks", None)
     if not blocks:
         return None
-    if getattr(engine, "is_lm", False):
-        raise NotImplementedError(
-            "snapshot_bundle on an LM is not ported yet: its stacked blocks "
-            "and diagonal factor sides need eigen states, which come with "
-            "eigen mode on an LM (ROADMAP A4)")
     eigen = {}
     for name, blk in blocks.items():
         if getattr(engine, "eigen", False) and name in state.inv:

@@ -50,9 +50,10 @@ _SIGNATURES = {
     # splits, vec, arows, stream
     "repro_matmul_rescale_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                                  _L, _L, _P, _F, _I, _I, _I, _I, _P],
-    # a_inv, t, mom, out, partials, m, n, k, am, vec, arows, stream
-    "repro_axpy_momentum_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I,
-                                _P],
+    # a_inv, t, mom, out, partials, batch, m, n, k, sa, sb, sc, am, vec,
+    # arows, stream
+    "repro_axpy_momentum_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
+                                _L, _P, _I, _I, _P],
     # q, k, v, lengths, out, ws, b, hq, hkv, hd, s, sb, sh, ss, window, cap,
     # scale, n_split, stream
     "repro_flash_decode_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -18,9 +18,10 @@ else k-major by 4-byte copies.  λ comes by
 value or, as a 0-d tensor, by device pointer (no host read).
 ``rotate_rescale`` is four launches, in the TPU kernel's order:
 ``matmul(Q_Aᵀ, V)``, ``matmul_rescale(·, Q_G, S, λ)``, ``matmul(Q_A, ·)``,
-``matmul(·, Q_Gᵀ)``.  The tile reads row-major operands only, so the two
-transposes are copies (``a² + g²`` floats, a few microseconds beside the
-products).
+``matmul(·, Q_Gᵀ)``, each over an optional leading batch dim (the LM's
+stacked layers: one launch of each for all of them).  The tile reads
+row-major operands only, so the two transposes are copies (``B·(a² + g²)``
+floats read and written, counted in the bound's bytes).
 
 Bound on this card: fp32 FMA throughput, ``2·a·g·(a + g)`` operations for
 each of the two rotations of an (a, g) weight — 18.0 GFLOP (0.269 ms at
@@ -75,20 +76,22 @@ matmul_rescale.launches = 0
 def rotate_rescale_ref(qa, v, qg, s, lam=0.0):
     """Plain PyTorch version, in the kernel's order of products."""
     qa, qg = qa.float(), qg.float()
-    t = qa.T @ v.float()
+    t = qa.transpose(-1, -2) @ v.float()
     t = matmul_rescale_ref(t, qg, s, lam)
-    return (qa @ t) @ qg.T
+    return (qa @ t) @ qg.transpose(-1, -2)
 
 
 def rotate_rescale(qa, v, qg, s, lam=0.0):
-    """qa: (a, a); v: (a, g); qg: (g, g); s: (a, g).  CPU tensors take
-    :func:`rotate_rescale_ref`; CUDA tensors launch the four kernels."""
+    """qa: ([B,] a, a); v: ([B,] a, g); qg: ([B,] g, g); s: ([B,] a, g),
+    the batch a stack of layers (the reference vmaps its kernel over it).
+    CPU tensors take :func:`rotate_rescale_ref`; CUDA tensors launch the
+    four kernels, each over the whole batch."""
     if v.device.type == "cpu":
         return rotate_rescale_ref(qa, v, qg, s, lam)
-    t = matmul(qa.T.contiguous(), v)         # Q_Aᵀ V
-    t = matmul_rescale(t, qg, s, lam)        # (· Q_G) / (S + λ)
-    t = matmul(qa, t)                        # Q_A ·
-    u = matmul(t, qg.T.contiguous())         # · Q_Gᵀ
+    t = matmul(qa.transpose(-1, -2).contiguous(), v)     # Q_Aᵀ V
+    t = matmul_rescale(t, qg, s, lam)                    # (· Q_G) / (S + λ)
+    t = matmul(qa, t)                                    # Q_A ·
+    u = matmul(t, qg.transpose(-1, -2).contiguous())     # · Q_Gᵀ
     rotate_rescale.launches += 1
     return u
 

@@ -3,8 +3,10 @@
     D = α·(Ā⁻¹ V Ḡ⁻¹) + μ·M,      ΣD² as a by-product
 
 Replaces ``repro/kernels/update_chain.py::axpy_momentum`` (``pallas_call``
-at line 73) and ``precond_momentum`` (line 99).  ``precond_momentum`` is two
-launches: ``T = V Ḡ⁻¹`` through :func:`matmul`, then ``axpy_momentum``
+at line 73) and ``precond_momentum`` (line 99).  Every operand may carry
+one leading batch dim (the LM's stacked layers, grid z of both launches;
+the reference sends a stacked layer to a plain composition instead).
+``precond_momentum`` is two launches: ``T = V Ḡ⁻¹`` through :func:`matmul`, then ``axpy_momentum``
 (``csrc/update_chain.cu``): the pipelined fp32 main loop of
 ``csrc/gemm_pipeline.cuh`` on 64×64 tiles (4×4 register patches, a
 ``cp.async`` ring of K slices), whose epilogue forms ``α·(Ā⁻¹T) + μ·M`` in
@@ -47,21 +49,22 @@ def axpy_momentum_ref(a_inv, t, mom, alpha, mu):
 def axpy_momentum(a_inv, t, mom, alpha, mu):
     """``D = alpha·(a_inv @ t) + mu·mom`` and ``ΣD²`` (a 0-d tensor).
 
-    a_inv: (M, K); t: (K, N); mom: (M, N); ``alpha``/``mu`` Python numbers
-    or 0-d tensors.  CPU tensors take :func:`axpy_momentum_ref`; CUDA
-    tensors launch the kernel or raise."""
+    a_inv: ([B,] M, K); t: ([B,] K, N); mom: ([B,] M, N), the batch a
+    stack of layers (grid z; ΣD² over all of them); ``alpha``/``mu``
+    Python numbers or 0-d tensors.  CPU tensors take
+    :func:`axpy_momentum_ref`; CUDA tensors launch the kernel or raise."""
     if t.device.type == "cpu":
         return axpy_momentum_ref(a_inv, t, mom, alpha, mu)
-    if a_inv.dim() != 2 or t.dim() != 2 or mom.dim() != 2:
-        raise ValueError("axpy_momentum: operands must be 2-D")
     op = operands("axpy_momentum", a_inv, t, mom)
     am = _build.scalar_pair(alpha, mu, op.a.device)
-    partials = torch.empty(partials_grid(op.m, op.n), device=op.a.device,
-                           dtype=torch.float32)
+    batch = max(op.batch, 1)
+    # one grid of tile partials per batch item, summed in a fixed order
+    partials = torch.empty((batch, *partials_grid(op.m, op.n)),
+                           device=op.a.device, dtype=torch.float32)
     status = _build.load().lib.repro_axpy_momentum_f32(
         op.a.data_ptr(), op.b.data_ptr(), op.epi[0].data_ptr(),
-        op.out.data_ptr(), partials.data_ptr(), op.m, op.n, op.k,
-        am.data_ptr(), int(gemm_plan.dense_vec16(op)),
+        op.out.data_ptr(), partials.data_ptr(), batch, op.m, op.n, op.k,
+        *op.strides, am.data_ptr(), int(gemm_plan.dense_vec16(op)),
         int(gemm_plan.dense_rows16(op, gemm_plan.DENSE_TILE)),
         _build.stream_of(op.a))
     _build.check(status, "axpy_momentum")
@@ -78,7 +81,8 @@ def precond_momentum_ref(a_inv, v, g_inv, mom, *, alpha, mu):
 
 
 def precond_momentum(a_inv, v, g_inv, mom, *, alpha, mu):
-    """a_inv: (a, a); v: (a, g); g_inv: (g, g); mom: (a, g).  Returns
+    """a_inv: ([B,] a, a); v: ([B,] a, g); g_inv: ([B,] g, g); mom: ([B,]
+    a, g).  Returns
     ``(D, ΣD²)``.  CPU tensors take :func:`precond_momentum_ref`; CUDA
     tensors launch ``matmul`` and ``axpy_momentum``."""
     if v.device.type == "cpu":

@@ -16,7 +16,10 @@ baseline at ``--lr`` (default 1e-3) instead.  The reference launcher's
 defaults: batch 8, seq 64, λ₀ 10, T3 5, ``--inv_mode blkdiag`` with
 Newton–Schulz inverses.  ``--inv_mode tridiag`` runs the block-diagonal
 path on an LM (it has no chain of layers), as the reference does;
-``--inv_mode eigen`` on an LM is not ported yet and raises.
+``--inv_mode eigen`` runs EKFAC (eigh bases on the T3 schedule, the
+eigenbasis diagonal re-estimated every step) on every arch.  The fused
+fixed-lr chain (``use_rescale=False``) and ``fused_stats`` are
+``KFACConfig`` fields with no option here, as in the reference.
 ``--refresh_mode staggered`` spreads the T3 inverse refresh over T3 steps
 in cost-balanced groups, and ``--tau1`` (default 1.0) computes the factor
 statistics on every round(1/τ1)-th sequence of the batch; the reference's
@@ -62,11 +65,15 @@ class _ArchData:
         return b
 
 
-def main(argv=None, log=print, wrap_opt=None, cfg=None):
+def main(argv=None, log=print, wrap_opt=None, cfg=None, kfac_kw=None):
     """Parse ``argv`` and train.  ``wrap_opt``, given, maps the optimizer
     to the one the trainer calls (e.g. one that times its updates).
     ``cfg``, given, is the ``ModelConfig`` trained in place of the arch's
-    (e.g. the arch cut in depth); its ``name`` must be the arch's."""
+    (e.g. the arch cut in depth); its ``name`` must be the arch's.
+    ``kfac_kw``, given, are ``KFACConfig`` fields set beside the options'
+    (e.g. ``use_rescale=False`` for the fused fixed-lr chain,
+    ``fused_stats=True``): the reference reaches them through its
+    ``KFACConfig`` too, with no option of its launcher."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b",
                     choices=TRAINED_ARCHS)
@@ -98,8 +105,10 @@ def main(argv=None, log=print, wrap_opt=None, cfg=None):
         raise ValueError(f"cfg {cfg.name!r} is not --arch's "
                          f"{arch_cfg.name!r}")
     cfg = cfg or arch_cfg
-    kcfg = KFACConfig(lambda_init=args.lambda_init, inv_mode=args.inv_mode,
-                      refresh_mode=args.refresh_mode, tau1=args.tau1, t3=5)
+    kcfg = KFACConfig(**{**dict(lambda_init=args.lambda_init,
+                                inv_mode=args.inv_mode,
+                                refresh_mode=args.refresh_mode,
+                                tau1=args.tau1, t3=5), **(kfac_kw or {})})
     lm = LM(cfg, kcfg, device=args.device)
     opt = optimizers.get(args.optimizer, lm, kfac_cfg=kcfg,
                          device=args.device, lr=args.lr)

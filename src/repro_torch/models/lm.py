@@ -199,6 +199,11 @@ class LM:
         self.enc_tag_names = _tag_names("enc")
         self.defs = self._param_defs()
         self.metas = self._layer_metas()
+        # fused_stats hooks (core/fused.py): empty, and filled by a K-FAC
+        # engine for its statistics pass alone (whisper's conv stems are
+        # the only eligible layers)
+        self.contract_map: Dict[str, Any] = {}
+        self.gcontract_map: Dict[str, Any] = {}
 
     # ------------------------------------------------------------------
     # parameter definitions
@@ -269,7 +274,7 @@ class LM:
         mfd = self.kfac.max_factor_dim
         metas: Dict[str, LayerMeta] = {}
 
-        def add(name, path, n_stack):
+        def add(name, path, n_stack, probe_tshard=False):
             pdef = self.defs
             for k in path:
                 pdef = pdef[k]
@@ -281,7 +286,8 @@ class LM:
                                     d_out=d_out, kind="dense",
                                     n_stack=n_stack, a_kind=a_kind,
                                     g_kind=g_kind, a_blocks=a_blocks,
-                                    g_blocks=g_blocks)
+                                    g_blocks=g_blocks,
+                                    probe_tshard=probe_tshard)
 
         weight = {"q": "wq", "k": "wk", "v": "wv", "o": "wo", "gate": "wg",
                   "up": "wu", "down": "wd"}
@@ -289,7 +295,12 @@ class LM:
         def add_block(names, path, parts, n_stack):
             for part in parts:
                 for w, name in names[part].items():
-                    add(name, path + (part, weight[w]), n_stack)
+                    # the reference's flag for the decoder's self-attention
+                    # q/k/v (its context-parallel probes); the port reads
+                    # it nowhere, but a bundle's metas carry it
+                    add(name, path + (part, weight[w]), n_stack,
+                        probe_tshard=(path[0] == "blocks" and part == "attn"
+                                      and w in ("q", "k", "v")))
 
         for pos, spec in enumerate(self.pattern):
             add_block(self.tag_names[pos], ("blocks", pos),
@@ -506,7 +517,7 @@ class LM:
         "metrics": {"loss": loss_true}})``; ``rng`` is the head's uniforms
         (``models/head.py``), None in the plain passes."""
         cfg = self.cfg
-        tg = Tagger(mode, probes)
+        tg = Tagger(mode, probes, self.contract_map, self.gcontract_map)
         x, positions, labels, mask, enc_out, extra = self._prepare_inputs(
             params, batch, tg, probes, mode)
         h, recs = self._backbone(params, x, positions, mode, probes, enc_out)

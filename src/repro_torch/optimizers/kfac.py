@@ -5,17 +5,18 @@
 ``staggered_inverse=True`` too), τ1-subsampled statistics and
 ``stats_period``, with the exact-F re-scaling (``use_rescale=True``) or the
 fused fixed-lr chain (``use_rescale=False``), and the statistics
-contracted inside the passes (``fused_stats=True``, ``core/fused.py``; not
-on an LM yet).
+contracted inside the passes (``fused_stats=True``, ``core/fused.py``; on
+an LM only whisper's two conv stems are eligible, as in the reference).
 Models: the MLP autoencoders, Bernoulli or Gaussian, and the conv
 classifier, categorical (``core/fisher.py::quad_logits``), and the LM
 (``quad_lm``; trained so far: whisper, smollm, llama3.2 and gemma2, whose
-d_ff sides are block-diagonal, blkdiag with the exact-F re-scaling;
+d_ff sides are block-diagonal, in every mode above;
 ``inv_mode="tridiag"`` on a model without
 ``layer_order``, an LM or the conv classifier, runs the block-diagonal
 path, as in the reference).  The reference is functional; here a
-statistics pass or a refresh writes its factors or inverses over a set the
-engine wrote before (:class:`Written`), so that a trainer holding the old
+statistics pass, a refresh or an EKFAC rescale writes its factors,
+inverses or eigen states over a set the engine wrote before
+(:class:`Written`), so that a trainer holding the old
 state does not hold a second set (full-width llama3.2-1b's are 14.3 GiB
 each).
 Parameters are nested trees (the LM's stacked ``blocks``),
@@ -144,16 +145,6 @@ class KFACEngine:
         self.family = family
         self.metas = model.metas
         self.is_lm = hasattr(model, "hidden")
-        # an LM has no layer_order: tridiag runs its block-diagonal path
-        if self.is_lm and (cfg.inv_mode == "eigen" or not cfg.use_rescale):
-            raise NotImplementedError(
-                "eigen mode and the fused fixed-lr chain on an LM are not "
-                "ported yet (only inv_mode='blkdiag' or 'tridiag' with "
-                "use_rescale=True)")
-        if self.is_lm and cfg.fused_stats:
-            raise NotImplementedError(
-                "fused_stats on an LM is not ported yet (the MLP and the "
-                "conv classifier only)")
         self.tagged = {m.param_path for m in self.metas.values()}
         self.blocks = build_blocks(self.metas, cfg, self.device)
         self.eigen = cfg.inv_mode == "eigen"
@@ -214,7 +205,7 @@ class KFACEngine:
             # fused layers swap the (N, d_out) zero probe for a (d_out,
             # d_out) one whose gradient is the contracted second moment
             from repro_torch.core import fused as FU
-            dev = batch["x"].device
+            dev = T.tree_leaves(batch)[0].device
             for n in self.fused_names:
                 probes[n] = FU.gg_probe(self.metas[n], dev)
         return probes
@@ -416,10 +407,11 @@ class KFACEngine:
         if not self.eigen:
             return state
         eps = self._scalar(self.cfg.eigen_decay)
-        inv = {name: blk.rescale_step(
-                   state.inv[name], T.get_path(grads, blk.meta.param_path),
-                   eps)
-               for name, blk in self.blocks.items()}
+        old = state.inv
+        inv = _written(old)
+        for name, blk in self.blocks.items():
+            inv[name] = blk.rescale_step(
+                old[name], T.get_path(grads, blk.meta.param_path), eps)
         return state.replace(inv=inv)
 
     def _omega1(self):

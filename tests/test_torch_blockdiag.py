@@ -20,7 +20,7 @@ A factor side above ``KFACConfig.max_factor_dim`` keeps nb diagonal
 * the registry's choice for each pair of side kinds, and the block's
   kernel route: one ``factor_update`` and one ``matmul`` call a side,
   the block axis in the call's batch; eigen mode, the fused chain and
-  ``fused_stats`` on a block side refused by name.
+  ``fused_stats`` built on a block side, each held to its plain version.
 
 Tolerances: rtol 1e-5 with an atol of 1e-5 of the array's largest
 magnitude (the dense Kronecker solve, in float64, to 1e-5 of the float32
@@ -413,6 +413,40 @@ def test_block_route_calls_one_kernel_a_side(layout, monkeypatch):
     (dict(use_rescale=False), "the fused fixed-lr chain"),
     (dict(fused_stats=True), "fused_stats")])
 def test_block_side_refuses_unported_paths_by_name(kw, what):
-    meta = _meta()
-    with pytest.raises(NotImplementedError, match=f"{what} on a block side"):
-        B.BlockDiagKronecker(meta, KFACConfig(**kw), "cpu")
+    """The paths a block side once refused by name now run: the block
+    builds under each config, and its kernel route gives the plain
+    version's answer (the reference's ``apply_eigen`` from JAX's own
+    eigen state; the base class's chain composition; ``fused_stats``
+    leaves a stacked block two-pass, ``fused_eligible`` False)."""
+    from repro_torch.core import fused
+    meta, jmeta = _pair(**_layout_kw(("block", 4, "block", 2)))
+    blk = B.BlockDiagKronecker(meta, KFACConfig(**kw), "cpu")
+    a = factors.outer_sum(torch.from_numpy(_rows(60, (S, N, meta.a_dim))),
+                          "block", stacked=True, blocks=meta.a_blocks) / N
+    g = factors.outer_sum(torch.from_numpy(_rows(61, (S, N, meta.g_dim))),
+                          "block", stacked=True, blocks=meta.g_blocks) / N
+    v = _rows(62, (S, meta.a_dim, meta.g_dim), mix=False)
+    if what == "eigen mode":
+        jeig = _np(jinverse.eigen_pair_state(jmeta, a.numpy(), g.numpy(),
+                                             np.float32(0.3)))
+        eig = {k: torch.from_numpy(x) for k, x in jeig.items()}
+        _close(blk.precondition_eigen(eig, torch.from_numpy(v)),
+               jinverse.apply_eigen(jmeta, jeig, v))
+        _close(blk.precondition_eigen(eig, torch.from_numpy(v)),
+               inverse.apply_eigen(meta, eig, torch.from_numpy(v)))
+        return
+    inv = blk.damped_inverse({"a": a, "g": g}, torch.tensor(0.3))
+    if what == "the fused fixed-lr chain":
+        mom = torch.from_numpy(_rows(63, v.shape, mix=False))
+        d, sq = blk.precond_momentum(inv, torch.from_numpy(v), mom,
+                                     torch.tensor(-0.05), torch.tensor(0.9))
+        want = (-0.05 * inverse.apply_block_inverse(meta, inv,
+                                                    torch.from_numpy(v))
+                + 0.9 * mom)
+        _close(d, want.numpy())
+        _close(sq, (want * want).sum().numpy())
+        return
+    assert not fused.fused_eligible(meta)
+    _close(blk.precondition(inv, torch.from_numpy(v)),
+           inverse.apply_block_inverse(meta, inv,
+                                       torch.from_numpy(v)).numpy())

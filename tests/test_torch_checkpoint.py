@@ -552,17 +552,39 @@ def test_bundle_schema_above_one_is_refused(tmp_path):
         load_bundle(str(tmp_path / "b"), device="cpu")
 
 
-def test_snapshot_of_first_order_and_lm():
-    """No curvature blocks: None.  An LM raises until eigen mode on an LM
-    is ported (its stacked blocks and diagonal sides)."""
+def test_snapshot_of_first_order_and_lm(tmp_path):
+    """No curvature blocks: None.  An LM gives a bundle: one eigen state
+    per block, stacked over its layers, with no basis on a diagonal side
+    (the embedding's Ā, the head's Ḡ), and its saved form loads back."""
     mlp, params, data = _problem()
     sgd = optimizers.get("sgd_momentum", mlp, lr=0.1)
     assert snapshot_bundle(sgd.engine, sgd.init(params, data.batch(0))) \
         is None
-    lm = LM(get_reduced_config("whisper-small"), device="cpu")
+    cfg = get_reduced_config("whisper-small")
+    lm = LM(cfg, device="cpu")
     opt = kfac(lm, KFACConfig(lambda_init=10.0, t3=5), device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        snapshot_bundle(opt.engine, None)
+    lp = lm.init_params(torch.Generator().manual_seed(0))
+    ldata = tlaunch._ArchData(cfg, tlaunch.SyntheticLMData(
+        cfg.vocab_size, 16, 2, device="cpu"))
+    state = opt.init(lp, ldata.batch(0))
+    _, state, _ = opt.update(None, state, lp, ldata.batch(0),
+                             lambda shape: torch.rand(shape))
+    bundle = snapshot_bundle(opt.engine, state)
+    assert set(bundle.eigen) == set(lm.metas)
+    assert bundle.eigen["embed"]["qa"] is None
+    assert bundle.eigen["lm_head"]["qg"] is None
+    for name, m in lm.metas.items():
+        lead = (m.n_stack,) if m.n_stack else ()
+        assert tuple(bundle.eigen[name]["s"].shape) == (*lead, m.a_dim,
+                                                        m.g_dim), name
+    save_bundle(bundle, str(tmp_path / "b"))
+    back = load_bundle(str(tmp_path / "b"), device="cpu")
+    assert back.metas == bundle.metas
+    for name in bundle.eigen:
+        for k, v in bundle.eigen[name].items():
+            assert (v is None) == (back.eigen[name][k] is None), (name, k)
+            if v is not None:
+                assert torch.equal(back.eigen[name][k], v), (name, k)
 
 
 def _bundle_data():

@@ -457,11 +457,10 @@ def test_jax_whisper_bundle_loads_in_the_port(tmp_path):
     _same_bundles(got, jbundle.load_bundle(str(tmp_path / "b")))
     assert got.eigen["embed"]["qa"] is None
     assert got.eigen["lm_head"]["qg"] is None
-    # the reference marks its attention maps' probes for context
-    # parallelism, which the port does not have: every other field is the
-    # port's own meta
-    assert {n: dataclasses.replace(m, probe_tshard=False)
-            for n, m in got.metas.items()} == s["lm"].metas
+    # the reference marks its self-attention maps' probes for context
+    # parallelism (probe_tshard), and so does the port's LM: every field
+    # is the port's own meta
+    assert got.metas == s["lm"].metas
     assert any(m.probe_tshard for m in got.metas.values())
 
 
@@ -507,6 +506,7 @@ def test_snapshot_of_a_blkdiag_state_matches_through_invariants():
             _close(got.eigen[name][k], w[k], rtol=1e-4)
         v = np.random.default_rng(13).standard_normal(
             (meta.a_dim, meta.g_dim)).astype(np.float32)
-        _close(inverse.apply_eigen(got.eigen[name], torch.from_numpy(v)),
+        _close(inverse.apply_eigen(meta, got.eigen[name],
+                                   torch.from_numpy(v)),
                np.asarray(jinverse.apply_eigen(jeng.metas[name], w, v)),
                rtol=1e-4)

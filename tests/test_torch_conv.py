@@ -347,10 +347,14 @@ def test_config_accepts_fused_stats():
 
 
 def test_lm_refuses_fused_stats():
+    """``fused_stats`` on an LM: the engine builds, and only whisper's two
+    conv stems (unstacked, full/full) are eligible, as in the reference;
+    the model's hook maps stay empty outside a statistics pass."""
     lm = LM(get_reduced_config("whisper-small"), device="cpu")
-    with pytest.raises(NotImplementedError, match="fused_stats"):
-        KFACEngine(lm, KFACConfig(fused_stats=True), device="cpu")
-    KFACEngine(lm, KFACConfig(), device="cpu")       # two-pass is fine
+    eng = KFACEngine(lm, KFACConfig(fused_stats=True), device="cpu")
+    assert eng.fused_names == {"enc.conv1", "enc.conv2"}
+    assert lm.contract_map == {} and lm.gcontract_map == {}
+    assert not KFACEngine(lm, KFACConfig(), device="cpu").fused_names
 
 
 def _mlp(fused, inv_mode):

@@ -2,7 +2,7 @@
 llama3.2-1b) on the CPU: every option the launcher offers, on each arch.
 
 * ``--inv_mode tridiag`` is the blkdiag run bit for bit (an LM has no
-  chain of layers), and ``--inv_mode eigen`` raises "not ported yet";
+  chain of layers), and ``--inv_mode eigen`` runs EKFAC;
 * ``--tau1 0.5`` and ``--refresh_mode staggered`` build the reference
   launcher's config (λ₀ 10, T3 5) with that mode;
 * ``--optimizer adam`` and ``sgd_momentum`` train with the first-order
@@ -65,8 +65,12 @@ def _tridiag(arch, tmp_path):
     hist, opt, _ = _run(arch, "--inv_mode", "tridiag")
     assert opt.engine.cfg.inv_mode == "tridiag" and opt.engine.chain is None
     assert hist == _run(arch, "--inv_mode", "blkdiag")[0]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _run(arch, "--inv_mode", "eigen")
+    # eigen runs on the LM: EKFAC states in place of inverses
+    eig_hist, eig_opt, _ = _run(arch, "--inv_mode", "eigen")
+    assert eig_opt.engine.eigen
+    assert set(next(iter(eig_opt.engine.blocks.values()))
+               .eigen_identity()) == {"qa", "qg", "s", "damp"}
+    assert [h["alpha"] for h in eig_hist] != [h["alpha"] for h in hist]
 
 
 def _tau1(arch, tmp_path):

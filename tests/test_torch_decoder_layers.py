@@ -39,7 +39,7 @@ torch.set_num_threads(1)
 
 # the LayerMeta fields both packages' metas must agree on
 META_FIELDS = ("param_path", "d_in", "d_out", "kind", "n_stack", "a_kind",
-               "g_kind", "a_blocks", "g_blocks")
+               "g_kind", "a_blocks", "g_blocks", "probe_tshard")
 
 
 def assert_metas_agree(metas, jmetas):

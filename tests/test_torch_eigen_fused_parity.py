@@ -140,10 +140,10 @@ def test_eigen_pair_state(setup, gamma):
     _close(got["damp"], want["damp"], rtol=1e-4)
     v = np.random.default_rng(2).standard_normal(
         (meta.a_dim, meta.g_dim)).astype(np.float32)
-    _close(inverse.apply_eigen(got, _t(v)),
+    _close(inverse.apply_eigen(meta, got, _t(v)),
            jinverse.apply_eigen(jmeta, want, v), rtol=1e-4)
     # carried across, JAX's own basis gives JAX's apply at rtol 1e-5
-    _close(inverse.apply_eigen(_tt(want), _t(v)),
+    _close(inverse.apply_eigen(meta, _tt(want), _t(v)),
            jinverse.apply_eigen(jmeta, want, v))
 
 
@@ -165,7 +165,7 @@ def test_eigen_pair_multi_shares_one_eigh(setup):
         # the shared eigh gives each candidate's own state
         for k in one:
             assert torch.equal(pick[k], one[k]), k
-        _close(inverse.apply_eigen(pick, _t(v)),
+        _close(inverse.apply_eigen(meta, pick, _t(v)),
                jinverse.apply_eigen(jmeta, {k: x[c] for k, x in
                                             want.items()}, v), rtol=1e-4)
 
@@ -178,13 +178,15 @@ def test_eigen_rescale_from_carried_basis(setup):
         (meta.a_dim, meta.g_dim)).astype(np.float32)
     eps = np.float32(0.95)
     want = _np(jinverse.eigen_rescale(jmeta, eig, grad, eps))
-    got = inverse.eigen_rescale(_tt(eig), _t(grad), torch.tensor(eps))
+    got = inverse.eigen_rescale(meta, _tt(eig), _t(grad),
+                                 torch.tensor(eps))
     _close_tree(got, want)
     # the squares make s independent of the basis's column signs
     flip = np.where(np.arange(meta.a_dim) % 2 == 0, -1.0, 1.0).astype(
         np.float32)
     flipped = dict(_tt(eig), qa=_t(eig["qa"] * flip[None, :]))
-    _close(inverse.eigen_rescale(flipped, _t(grad), torch.tensor(eps))["s"],
+    _close(inverse.eigen_rescale(meta, flipped, _t(grad),
+                                 torch.tensor(eps))["s"],
            want["s"])
 
 
@@ -211,7 +213,7 @@ def test_eigen_apply_matches_eigh_inverse_apply(setup, gamma):
                                    torch.tensor(gamma, dtype=torch.float32))
     sd = (eig["s"] + eig["damp"]).numpy()
     kappa = float(sd.max() / sd.min())
-    _close(inverse.apply_eigen(eig, _t(v)), want, rtol=5e-6 * kappa)
+    _close(inverse.apply_eigen(meta, eig, _t(v)), want, rtol=5e-6 * kappa)
 
 
 # ---------------------------------------------------------------------------

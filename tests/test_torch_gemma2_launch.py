@@ -7,7 +7,7 @@ so these runs set it (64: the MLP's d_ff sides in 2 blocks; 48: d_model
 in 2 and d_ff in 4) through the ``KFACConfig`` the launcher builds.
 
 * blkdiag; ``--inv_mode tridiag``, which is the blkdiag run bit for bit
-  (an LM has no chain of layers); ``--inv_mode eigen``, which raises;
+  (an LM has no chain of layers); ``--inv_mode eigen``, which runs;
 * ``--tau1 0.5`` and ``--refresh_mode staggered``;
 * ``--optimizer adam`` and ``sgd_momentum``;
 * ``--ckpt_dir``: a relaunch resumes from the checkpoint at step 10, and
@@ -83,8 +83,12 @@ def _tridiag(mfd, tmp_path):
     hist, opt, _ = _run("--inv_mode", "tridiag")
     assert opt.engine.cfg.inv_mode == "tridiag" and opt.engine.chain is None
     assert hist == _run("--inv_mode", "blkdiag")[0]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _run("--inv_mode", "eigen")
+    # eigen runs, block sides included: their bases are block stacks
+    eig_hist, eig_opt, _ = _run("--inv_mode", "eigen")
+    assert eig_opt.engine.eigen and _blocks_in(eig_opt)
+    # λ₀ 10 swamps the curvature: the losses may agree to the last bit,
+    # the step sizes do not
+    assert [h["alpha"] for h in eig_hist] != [h["alpha"] for h in hist]
 
 
 def _tau1(mfd, tmp_path):

@@ -168,7 +168,7 @@ def test_eigh_symmetrizes_as_jax_does():
     sym = 0.5 * (m + m.T)
     _close(v @ torch.diag(w) @ v.T, sym, 1e-5)
     _close(inverse.eigh_inverse(_t(m)), jinverse.eigh_inverse(m), 1e-4)
-    q, wc = inverse.eigh_basis(_t(m))
+    q, wc = inverse.eigh_basis(_t(m), "full")
     _close(q @ torch.diag(wc) @ q.T, sym, 1e-5)
     # the lower triangle alone is another matrix
     lower = torch.linalg.eigh(_t(m))[0]
@@ -426,16 +426,15 @@ def test_config_accepts_tridiag():
 
 def test_lm_tridiag_is_the_block_diagonal_engine():
     """An LM has no layer_order: tridiag builds no chain and keeps no cross
-    moments (the reference's ``self.tridiag``); eigen stays refused."""
+    moments (the reference's ``self.tridiag``), with or without the fused
+    chain."""
     lm = LM(get_reduced_config("whisper-small"), device="cpu")
     eng = KFACEngine(lm, KFACConfig(inv_mode="tridiag", lambda_init=10.0),
                      device="cpu")
     assert eng.chain is None and not eng.tridiag
-    with pytest.raises(NotImplementedError, match="eigen"):
-        KFACEngine(lm, KFACConfig(inv_mode="eigen"), device="cpu")
-    with pytest.raises(NotImplementedError, match="fused"):
-        KFACEngine(lm, KFACConfig(inv_mode="tridiag", use_rescale=False),
-                   device="cpu")
+    eng = KFACEngine(lm, KFACConfig(inv_mode="tridiag", use_rescale=False),
+                     device="cpu")
+    assert eng.chain is None and not eng.tridiag and not eng.eigen
 
 
 def test_engine_builds_the_chain_on_an_mlp(setup):

@@ -27,6 +27,7 @@ JAX's tridiag run at ``test_torch_whisper_trajectory.py``'s bands.
 """
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -501,7 +502,7 @@ def test_reduced_whisper_tridiag_is_blkdiag_and_jax():
 
 def test_train_launcher_inv_mode():
     """``launch/train.py --inv_mode``: tridiag on reduced whisper is the
-    blkdiag run; eigen on an LM raises the port's "not ported yet"."""
+    blkdiag run; eigen on an LM runs (EKFAC), and is another run."""
     def run(mode):
         return tlaunch.main(["--arch", "whisper-small", "--reduced",
                              "--steps", "2", "--inv_mode", mode,
@@ -509,5 +510,7 @@ def test_train_launcher_inv_mode():
                             log=lambda *_: None)["history"]
 
     assert run("tridiag") == run("blkdiag")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run("eigen")
+    eig = run("eigen")
+    assert all(math.isfinite(h["loss"]) for h in eig)
+    assert [h["alpha"] for h in eig] != [h["alpha"]
+                                         for h in run("blkdiag")]

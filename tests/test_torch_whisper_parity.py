@@ -63,7 +63,9 @@ def _close(got, want, rtol=1e-5):
 
 
 def _close_tree(got, want, rtol=1e-5):
-    if isinstance(want, dict):
+    if want is None:                 # an eigen state's diagonal side
+        assert got is None
+    elif isinstance(want, dict):
         assert set(got) == set(want), (sorted(got), sorted(want))
         for k in want:
             _close_tree(got[k], want[k], rtol)
@@ -297,6 +299,15 @@ def test_diag_factor_block_matches_jax(a_kind, g_kind):
 @pytest.mark.parametrize("kw", [{"inv_mode": "eigen"},
                                 {"use_rescale": False}])
 def test_lm_refuses_eigen_and_fused(kw):
-    """Only blkdiag with the exact-F rescale is ported for the LM."""
-    with pytest.raises(NotImplementedError):
-        KFACEngine(_setup()["lm"], KFACConfig(**kw), device="cpu")
+    """Eigen mode and the fused fixed-lr chain on the LM: the engine builds
+    and ``init`` gives the reference's initial state, held as values (the
+    eigen mode's identity bases, no basis on a diagonal side, unit ``s``
+    and zero ``damp``; the blkdiag identities under the chain)."""
+    s = _setup()
+    b, jb = s["data"].batch(0), s["jdata"].batch(0)
+    cfg = dict(lambda_init=10.0, t3=5, **kw)
+    jstate = JEngine(s["jl"], JKFACConfig(**cfg)).init(s["jp"], jb)
+    state = KFACEngine(s["lm"], KFACConfig(**cfg), device="cpu").init(
+        s["params"], b)
+    _close_tree(state.inv, _np(jstate.inv))
+    _close_tree(state.factors, _np(jstate.factors))
